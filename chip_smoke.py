@@ -1,0 +1,366 @@
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100), in phases.
+
+    python3 chip_smoke.py
+
+1. Card: name and power limit (nvidia-smi), torch and CUDA versions; TF32
+   off for float32 products (the reference holds the loss to rtol 1e-4).
+2. Build: every CUDA source of the port with nvcc for sm_90a, at first use,
+   into build/torch_kernels/ (nvcc's -Xptxas -v report is printed).
+3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
+   at the main path's shape (B=4096, D=128, unit-norm rows, temperature
+   0.1, duplicate ids, zero-weight rows, log q) and at ragged shapes
+   (B=1000; a 300-row block at offset 500 with D=96). Tolerances: forward
+   outputs rtol 1e-4 / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5.
+4. Small-input check of the whole step: three steps at embedding 32,
+   towers [64,32], batch 256, float32 compute, dropout 0, from one state,
+   on the card (kernels) and on the CPU (plain versions); loss and
+   grad_norm rtol 1e-4, final tables and moments rtol 1e-4 / atol 1e-5.
+5. Main path: the default model (embedding 128, towers [512,256,128], bf16
+   compute, dropout 0.1, in-batch softmax with log q, lazy-Adam tables, host
+   dedup) at batch 4096 over 1M users x 500k items, through
+   init_train_state and make_train_step, 5 + 20 steps. Launch counts are
+   set to 0 just before and read just after; every kernel must have run.
+   Then 5 more steps under torch.profiler: device time by kernel and the
+   device's busy share of the window.
+6. Times: per kernel, the median of 20 CUDA-event timings at the main
+   path's shape, beside its bound, its plain version and a library
+   yardstick (one torch.matmul(u, v.T) at the same shape, which the port
+   never calls). Then one JSON line of kernels, the median step time, and
+   the last line {"ok": true, "device": {...}}.
+
+Any failure raises and exits non-zero; without a GPU, or without the rest
+of the repository beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+MAIN_B, MAIN_D = 4096, 128
+NUM_USERS, NUM_ITEMS = 1_000_000, 500_000
+WARMUP_STEPS, MEASURE_STEPS = 5, 20
+TEMP = 0.1
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def loss_inputs(batch, dim, rows, seed, *, unit=True):
+    """U rows at offset 0 (rows of the block), V, int32 ids with duplicates,
+    folded log-q columns with 7 zero-weight columns, and an upstream g."""
+    from twotower_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randn(rows, dim, generator=gen, device="cuda")
+    v = torch.randn(batch, dim, generator=gen, device="cuda")
+    if unit:
+        u = u / u.norm(dim=1, keepdim=True)
+        v = v / v.norm(dim=1, keepdim=True)
+    ids = torch.randint(0, max(batch // 2, 1), (batch,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    log_q = torch.log(torch.rand(max(batch // 2, 1), generator=gen, device="cuda") * 1e-2 + 1e-4)
+    w = torch.ones(batch, device="cuda")
+    w[-7:] = 0.0
+    cols = kernels.logq_cols(ids, log_q, w)
+    g = torch.rand(rows, generator=gen, device="cuda") / rows
+    return u, v, ids, cols, g
+
+
+def check_kernels(shape_cases):
+    """Each kernel against its plain version; returns max abs errors at the
+    first (main-path) case."""
+    from twotower_tpu_torch.ops import kernels
+
+    main_err = {}
+    for batch, dim, rows, off, unit in shape_cases:
+        u, v, ids, cols, g = loss_inputs(batch, dim, rows + off, seed=batch + dim, unit=unit)
+        u = u[off:].contiguous()
+        g = g[off:].contiguous()
+        args = (u, v, ids, cols, off)
+        got = kernels.fused_fwd(*args, 1 / TEMP)
+        ref = kernels.fwd_plain(*args, 1 / TEMP)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("loss", "lse", "correct", "pos"), got, ref):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m: f"fwd {name}: {m}")
+        # Error over live rows: a zero-weight row's pos and loss sit near
+        # -1e9 / +1e9 by design, where one float32 ulp is 64.
+        live = off + torch.arange(rows, device="cuda") < batch - 7
+        fwd_err = max(float((a - b)[live].abs().max()) for a, b in zip(got, ref))
+        lse = ref[1]
+        bwd_args = (*args, lse, g, 1 / TEMP)
+        du, du_ref = kernels.fused_bwd_du(*bwd_args), kernels.bwd_du_plain(*bwd_args)
+        dv, dv_ref = kernels.fused_bwd_dv(*bwd_args), kernels.bwd_dv_plain(*bwd_args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(du, du_ref, rtol=5e-3, atol=1e-5)
+        torch.testing.assert_close(dv, dv_ref, rtol=5e-3, atol=1e-5)
+        errs = {
+            "fused_loss_fwd": fwd_err,
+            "fused_loss_bwd_du": float((du - du_ref).abs().max()),
+            "fused_loss_bwd_dv": float((dv - dv_ref).abs().max()),
+        }
+        log(f"  B={batch} D={dim} rows={rows} offset={off}: max abs err {errs}")
+        if not main_err:
+            main_err = errs
+    return main_err
+
+
+def host_batches(n, batch, num_users, num_items, user_dead, item_dead, seed):
+    from twotower_tpu_torch.training.host_dedup import augment_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {
+            "user_idx": rng.integers(0, num_users, batch).astype(np.int32),
+            "item_idx": rng.integers(0, num_items, batch).astype(np.int32),
+            "weight": np.ones(batch, np.float32),
+        }
+        out.append(augment_batch(b, user_dead=user_dead, item_dead=item_dead))
+    return out
+
+
+def check_small_step():
+    """Three steps on the card (kernels) against the CPU (plain versions)
+    from one state."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    cfg = Config().with_overrides({
+        "model.embedding_dim": 32, "model.user_tower_dims": [64, 32],
+        "model.item_tower_dims": [64, 32], "model.compute_dtype": "float32",
+        "model.dropout_rate": 0.0, "training.batch_size": 256,
+    })
+    opt = make_optimizer(cfg.training)
+    start = bridge.state_to_numpy(init_train_state(cfg, opt, 1000, 500, device="cpu"))
+    rows_i = start["params"]["item_embedding"].shape[0]
+    log_q = np.log(np.random.default_rng(5).dirichlet(np.ones(rows_i)) + 1e-9).astype(np.float32)
+    batches = host_batches(3, 256, 1000, 500, start["params"]["user_embedding"].shape[0] - 1,
+                           rows_i - 1, seed=6)
+    ends, metrics = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = bridge.state_from_numpy(start, device=dev)
+        step = make_train_step(cfg, make_optimizer(cfg.training), log_q, device=dev)
+        metrics[dev] = []
+        for b in batches:
+            state, m = step(state, b, None)
+            metrics[dev].append((float(m["loss"]), float(m["grad_norm"])))
+        ends[dev] = bridge.state_to_numpy(state)
+    np.testing.assert_allclose(metrics["cuda"], metrics["cpu"], rtol=1e-4)
+    for name in ("user_embedding", "item_embedding"):
+        np.testing.assert_allclose(ends["cuda"]["params"][name], ends["cpu"]["params"][name],
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(ends["cuda"]["table_state"][name]["moments"],
+                                   ends["cpu"]["table_state"][name]["moments"],
+                                   rtol=1e-4, atol=1e-5)
+    log(f"  card vs CPU, 3 steps: (loss, grad_norm) cuda {metrics['cuda']} cpu {metrics['cpu']}")
+
+
+def run_main_path():
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.models.two_tower import dead_row
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    cfg = Config().with_overrides({"training.batch_size": MAIN_B})
+    opt = make_optimizer(cfg.training)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS)
+    torch.cuda.synchronize()
+    log(f"  init_train_state: {time.perf_counter() - t0:.3f} s; tables "
+        f"{tuple(state.params['user_embedding'].shape)} + "
+        f"{tuple(state.params['item_embedding'].shape)}")
+    rows_i = state.params["item_embedding"].shape[0]
+    log_q = np.log(np.full(rows_i, 1.0 / NUM_ITEMS, np.float32))
+    step = make_train_step(cfg, opt, log_q)
+    batches = host_batches(8, MAIN_B, NUM_USERS, NUM_ITEMS, dead_row(state.params["user_embedding"]),
+                           dead_row(state.params["item_embedding"]), seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    kernels.reset_launch_counts()
+    step_ms, losses = [], []
+    for i in range(WARMUP_STEPS + MEASURE_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batches[i % len(batches)], gen)
+        loss = float(m["loss"])  # synchronises
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    n_steps = WARMUP_STEPS + MEASURE_STEPS
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss on the main path: {losses}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel never ran on the main path: {launches}")
+    log(f"  {n_steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"grad_norm {float(m['grad_norm']):.4f}; launches {launches} "
+        f"({ {k: v / n_steps for k, v in launches.items()} } per step)")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_steps(step, state, batches, gen)
+    return launches, statistics.median(step_ms)
+
+
+def profile_steps(step, state, batches, gen, n: int = 5) -> None:
+    """Device time by kernel over ``n`` main-path steps (torch.profiler),
+    and the device's busy share of the window's wall time (the profiler's
+    own cost inflates the wall time, so the share is a lower bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for i in range(n):
+            state, _ = step(state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # Device-side events only (kernels, copies): the host ops that launched
+    # them report the same time again.
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    log(f"  profile of {n} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({busy_ms / wall_ms:.3f} of wall)")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"    {e.self_device_time_total / 1e3 / n:9.4f} ms/step  x{e.count / n:5.1f}  "
+            f"{e.key[:90]}")
+
+
+def kernel_times(errs, launches):
+    from twotower_tpu_torch.ops import kernels
+
+    u, v, ids, cols, g = loss_inputs(MAIN_B, MAIN_D, MAIN_B, seed=7)
+    args = (u, v, ids, cols, 0)
+    lse = kernels.fwd_plain(*args, 1 / TEMP)[1]
+    bwd_args = (*args, lse, g, 1 / TEMP)
+    r = b = MAIN_B
+    d = MAIN_D
+    io_in = (r + b) * d * 4 + 2 * b * 4  # U, V, ids, cols
+    specs = [
+        # name, wrapper, plain, flops, bytes, TPU kernel replaced
+        ("fused_loss_fwd", kernels.fused_fwd, kernels.fwd_plain, (*args, 1 / TEMP),
+         2 * r * b * d, io_in + 4 * r * 4, "twotower_tpu/ops/pallas_kernels.py:132"),
+        ("fused_loss_bwd_du", kernels.fused_bwd_du, kernels.bwd_du_plain, bwd_args,
+         4 * r * b * d, io_in + 2 * r * 4 + r * d * 4, "twotower_tpu/ops/pallas_kernels.py:230"),
+        ("fused_loss_bwd_dv", kernels.fused_bwd_dv, kernels.bwd_dv_plain, bwd_args,
+         4 * r * b * d, io_in + 2 * r * 4 + b * d * 4, "twotower_tpu/ops/pallas_kernels.py:230"),
+    ]
+    library_ms = time_ms(lambda: torch.matmul(u, v.T))
+    rows = []
+    for name, fn, plain, fargs, flops, nbytes, replaces in specs:
+        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "twotower_tpu_torch/ops/csrc/fused_loss.cu",
+            "replaces": replaces,
+            "launches": launches[fn.__name__],
+            "max_abs_err": errs[name],
+            "ms": time_ms(lambda: fn(*fargs)),
+            "plain_ms": time_ms(lambda: plain(*fargs)),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms,
+        })
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing was run", file=sys.stderr)
+        return 1
+    if not (ROOT / "twotower_tpu_torch" / "ops" / "csrc").is_dir():
+        print(f"chip_smoke: the port's package is not beside {__file__}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from twotower_tpu_torch.ops import build
+
+    log("phase 1: card")
+    card = card_line()
+    log(card)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    log(f"  built {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
+    for src, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  [{src}] {line.strip()}")
+
+    log("phase 3: kernels against their plain versions")
+    errs = check_kernels([
+        (MAIN_B, MAIN_D, MAIN_B, 0, True),
+        (1000, MAIN_D, 1000, 0, False),
+        (1000, 96, 300, 500, False),
+    ])
+
+    log("phase 4: small-input step, card against CPU")
+    check_small_step()
+
+    log("phase 5: main path")
+    launches, step_ms = run_main_path()
+
+    log("phase 6: kernel times")
+    rows = kernel_times(errs, launches)
+    log(json.dumps({"kernels": rows}))
+    log(f"main path median step ms: {step_ms} ({card}); "
+        f"{MAIN_B / step_ms * 1e3:.1f} examples/s")
+    log(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

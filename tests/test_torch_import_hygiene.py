@@ -1,0 +1,110 @@
+"""The PyTorch port stands alone: no module of ``twotower_tpu_torch/`` and
+not ``chip_smoke.py`` imports JAX, its libraries or the JAX package; and
+its entry points run on the GPU unless the caller asks for the CPU by name
+(with no GPU they raise instead of falling back).
+
+Also the one test that needs the card: the CUDA kernels against their plain
+versions, marked ``cuda`` and skipped where no GPU is visible. This file
+imports no JAX, so it runs on a GPU machine that has none."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from twotower_tpu_torch.config import Config
+from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "twotower_tpu"}
+PORT_FILES = sorted((ROOT / "twotower_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def test_hygiene_check_sees_the_whole_package():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"chip_smoke.py", "twotower_tpu_torch/ops/kernels.py",
+            "twotower_tpu_torch/training/sparse.py"} <= names
+
+
+def _small():
+    return Config().with_overrides(
+        {"model.embedding_dim": 16, "model.user_tower_dims": [16],
+         "model.item_tower_dims": [16]}
+    )
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    cfg = _small()
+    opt = make_optimizer(cfg.training)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, opt, 10, 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg, opt, 10, 10, device="cuda")
+    state = init_train_state(cfg, opt, 10, 10, device="cpu")
+    assert state.params["user_embedding"].device.type == "cpu"
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,dim,rows,off", [(4096, 128, 4096, 0), (1000, 96, 300, 500)])
+def test_cuda_kernels_match_plain(cuda_device, batch, dim, rows, off):
+    from twotower_tpu_torch.ops import kernels
+
+    # Inputs at the training step's scale: unit-norm tower outputs at
+    # temperature 0.1 (logits in [-10, 10]) and g = weight / denominator.
+    # test_pallas.py's tolerances are for that scale; with raw N(0, 1) rows
+    # the logits reach ~100 and the float32 summation order of S alone
+    # moves the sharp softmax by more than atol.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    u = torch.tensor(rng.normal(size=(rows, dim)), dtype=torch.float32, device=cuda_device)
+    v = torch.tensor(rng.normal(size=(batch, dim)), dtype=torch.float32, device=cuda_device)
+    u = u / u.norm(dim=1, keepdim=True)
+    v = v / v.norm(dim=1, keepdim=True)
+    ids = torch.tensor(rng.integers(0, batch // 2, batch), dtype=torch.int32, device=cuda_device)
+    w = torch.ones(batch, device=cuda_device)
+    w[-7:] = 0.0
+    lq = torch.tensor(np.log(rng.uniform(1e-4, 1e-2, batch // 2)), dtype=torch.float32,
+                      device=cuda_device)
+    cols = kernels.logq_cols(ids, lq, w)
+    g = torch.rand(rows, device=cuda_device) / rows
+    args = (u, v, ids, cols, off)
+    got = kernels.fused_fwd(*args, 10.0)
+    ref = kernels.fwd_plain(*args, 10.0)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    lse = ref[1]
+    torch.testing.assert_close(kernels.fused_bwd_du(*args, lse, g, 10.0),
+                               kernels.bwd_du_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
+    torch.testing.assert_close(kernels.fused_bwd_dv(*args, lse, g, 10.0),
+                               kernels.bwd_dv_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)

@@ -1,0 +1,245 @@
+"""Sparse (row-wise) embedding-table training step (PyTorch).
+
+Counterpart of ``twotower_tpu/training/sparse.py``: differentiate w.r.t.
+the *gathered rows*, dedup duplicate ids inside the batch (sort +
+segment-sum, or the host-precomputed dedup of ``training/host_dedup.py``),
+and add a lazy-Adam row update onto only the touched rows.
+
+Semantics vs dense Adam: identical for every touched row on every step in
+which it is touched; untouched rows carry no momentum decay (lazy Adam).
+
+Duplicate/invalid targets are aimed at the table's reserved dead row
+(``models.two_tower.dead_row``) with zero-masked updates, so every target
+is unique or harmless. The updates are in-place ``index_add_`` on the
+tables and the packed moments (the JAX step gets the same effect by
+donating its state): no copy of the ~2.3 GB of tables and moments per step.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from twotower_tpu_torch.config import TrainingConfig
+from twotower_tpu_torch.training.state import (
+    TrainState,
+    _lr_schedule,
+    f32_pow,
+    tree_leaves,
+    tree_map,
+)
+
+TABLE_NAMES = ("user_embedding", "item_embedding", "text_embedding")
+
+
+def split_params(params: dict) -> tuple[dict, dict]:
+    """(tables, dense) partition of the parameter dict."""
+    tables = {k: v for k, v in params.items() if k in TABLE_NAMES}
+    dense = {k: v for k, v in params.items() if k not in TABLE_NAMES}
+    return tables, dense
+
+
+def init_table_state(tables: dict) -> dict:
+    """Adam moments per table, PACKED as one ``[rows, 2E]`` tensor
+    (``[:, :E]`` = mu, ``[:, E:]`` = nu): one gather and one scatter per
+    table for both moments."""
+    return {
+        name: {"moments": t.new_zeros((t.shape[0], 2 * t.shape[1]))}
+        for name, t in tables.items()
+    }
+
+
+def dedup_rows(
+    ids: torch.Tensor, grads: torch.Tensor, dead: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Combine duplicate ids: stable sort + segment-sum with static shapes.
+
+    Returns (targets [B], summed_grads [B, E], valid [B]): for each segment
+    (unique id, ascending) one valid row holding the summed gradient and the
+    id as target; all other rows target the dead row with zero updates.
+    """
+    b = ids.shape[0]
+    order = torch.argsort(ids, stable=True)
+    sid = ids[order].long()
+    first = torch.ones(b, dtype=torch.bool, device=ids.device)
+    first[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(first, 0) - 1  # segment per sorted row, in [0, B)
+    summed = grads.new_zeros(grads.shape).index_add_(0, seg, grads[order])
+    valid = torch.arange(b, device=ids.device) < first.sum()
+    targets = torch.full((b,), dead, dtype=torch.long, device=ids.device)
+    targets[seg] = sid  # every row of a segment writes the same id
+    return targets, summed, valid
+
+
+@torch.no_grad()
+def adam_row_update_packed(
+    table: torch.Tensor,
+    moments: torch.Tensor,
+    targets: torch.Tensor,
+    grads: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    lr: float,
+    b1: float,
+    b2: float,
+    eps: float,
+    step: int,
+) -> None:
+    """Lazy Adam on the targeted rows, in place, with mu/nu packed as
+    ``moments[:, :E] / [:, E:]``. ``targets`` must be unique apart from
+    zero-masked (``valid`` false) rows."""
+    e = table.shape[1]
+    targets = targets.long()
+    mask = valid.to(table.dtype)[:, None]
+    mo_rows = moments[targets]
+    new_mu = b1 * mo_rows[:, :e] + (1.0 - b1) * grads
+    new_nu = b2 * mo_rows[:, e:] + (1.0 - b2) * (grads * grads)
+    mu_hat = new_mu / (1.0 - f32_pow(b1, step))
+    nu_hat = new_nu / (1.0 - f32_pow(b2, step))
+    update = lr * mu_hat / (torch.sqrt(nu_hat) + eps)
+    table.index_add_(0, targets, -update * mask)
+    new_mo = torch.cat([new_mu, new_nu], dim=1)
+    moments.index_add_(0, targets, (new_mo - mo_rows) * mask)
+
+
+def make_lr_fn(config: TrainingConfig) -> Callable[[int], float]:
+    """The same schedule the dense optimizer uses (training.state)."""
+    if config.warmup_steps > 0 or config.decay_steps > 0:
+        return _lr_schedule(config)
+    return lambda step: config.learning_rate
+
+
+@torch.no_grad()
+def sparse_table_updates(
+    tables: dict,
+    table_state: dict,
+    row_grads: dict[str, tuple[torch.Tensor, torch.Tensor]],
+    *,
+    lr: float,
+    step: int,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    pre: dict[str, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] | None = None,
+) -> torch.Tensor:
+    """Apply row updates, in place, for every table with gradients.
+
+    ``row_grads``: table name -> (ids [R], grads [R, E]); ids may repeat.
+    ``pre``: optional host-precomputed dedup per table — ``name ->
+    (targets [R], seg [R], valid [R])`` from ``training.host_dedup`` — which
+    replaces the sort + segment dedup with one grads scatter-add
+    (``summed[seg[j]] += grads[j]``). Returns the grad-norm-squared
+    contribution of the tables.
+    """
+    from twotower_tpu_torch.models.two_tower import dead_row
+
+    norm_sq = torch.zeros((), device=next(iter(tables.values())).device)
+    for name, (ids, grads) in row_grads.items():
+        table = tables[name]
+        if pre is not None and name in pre:
+            targets, seg, valid = pre[name]
+            summed = torch.zeros_like(grads).index_add_(0, seg.long(), grads)
+        else:
+            targets, summed, valid = dedup_rows(ids, grads, dead_row(table))
+        adam_row_update_packed(
+            table,
+            table_state[name]["moments"],
+            targets,
+            summed,
+            valid,
+            lr=lr,
+            b1=b1,
+            b2=b2,
+            eps=eps,
+            step=step,
+        )
+        norm_sq = norm_sq + torch.sum(summed * summed * valid.float()[:, None])
+    return norm_sq
+
+
+def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None):
+    """Train step with sparse table updates: ``step(state, batch, rng,
+    log_q=None)`` with ``batch`` a dict of tensors on the state's device and
+    ``rng`` a ``torch.Generator`` there (dropout masks).
+
+    Differentiates the loss w.r.t. the gathered embedding rows (not the
+    tables), applies the dense optimizer to the towers and lazy-Adam row
+    updates to the tables, all in place. ``in_batch`` candidate sampling
+    only in this port so far.
+    """
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
+    from twotower_tpu_torch.ops.losses import l2_penalty
+
+    mcfg = config.model
+    rcfg = config.retrieval
+    if rcfg.candidate_sampling != "in_batch":
+        raise NotImplementedError(
+            f"{rcfg.candidate_sampling} candidate sampling is not ported yet "
+            "(ROADMAP.md, Queue 1: uniform and mixed sampling)"
+        )
+    lr_fn = make_lr_fn(config.training)
+
+    def step(state: TrainState, batch: dict, rng: torch.Generator | None,
+             log_q: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
+        tables, dense = split_params(state.params)
+        u_ids = batch["user_idx"]
+        i_ids = batch["item_idx"]
+        # Differentiate w.r.t. detached views of the dense params and the
+        # gathered rows; the in-place updates below go to the originals.
+        diff = tree_map(lambda t: t.detach().requires_grad_(), dense)
+        u_rows = tables["user_embedding"][u_ids].requires_grad_()
+        i_rows = tables["item_embedding"][i_ids].requires_grad_()
+        with torch.enable_grad():
+            u_emb = two_tower.apply_user_tower(
+                diff, u_rows, mcfg, train=True, dropout_gen=rng
+            )
+            i_emb = two_tower.apply_item_tower(
+                diff, i_rows, mcfg, train=True, dropout_gen=rng
+            )
+            loss, metrics = in_batch_softmax_loss_auto(
+                u_emb,
+                i_emb,
+                i_ids,
+                temperature=rcfg.temperature,
+                log_q=log_q if rcfg.logq_correction else None,
+                weights=batch.get("weight"),
+            )
+            if mcfg.l2_regularization > 0:
+                reg = l2_penalty(diff, [u_rows, i_rows])
+                loss = loss + mcfg.l2_regularization * reg
+            leaves = tree_leaves(diff)
+            *dense_grads, u_grad, i_grad = torch.autograd.grad(
+                loss, [*leaves, u_rows, i_rows]
+            )
+        # A flat list is its own leaf order, the one ``leaves`` came in.
+        new_opt = dense_optimizer.update_(dense, dense_grads, state.opt_state)
+
+        pre = {}
+        if "u_targets" in batch:
+            pre["user_embedding"] = (batch["u_targets"], batch["u_seg"], batch["u_valid"])
+        if "i_targets" in batch:
+            pre["item_embedding"] = (batch["i_targets"], batch["i_seg"], batch["i_valid"])
+        step_num = state.step + 1
+        tbl_norm_sq = sparse_table_updates(
+            tables,
+            state.table_state,
+            {"user_embedding": (u_ids, u_grad), "item_embedding": (i_ids, i_grad)},
+            lr=lr_fn(state.step),
+            step=step_num,
+            pre=pre or None,
+        )
+        dense_sq = sum(torch.sum(g * g) for g in dense_grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = torch.sqrt(dense_sq + tbl_norm_sq)
+        new_state = TrainState(
+            step=step_num,
+            params=state.params,
+            opt_state=new_opt,
+            table_state=state.table_state,
+        )
+        return new_state, metrics
+
+    return step
