@@ -5,12 +5,20 @@
 1. Card: name and power limit (nvidia-smi), torch and CUDA versions; TF32
    off for float32 products (the reference holds the loss to rtol 1e-4).
 2. Build: every CUDA source of the port with nvcc for sm_90a, at first use,
-   into build/torch_kernels/ (nvcc's -Xptxas -v report is printed).
+   into build/torch_kernels/, one nvcc a source, all at once. Per kernel:
+   registers and spill bytes (nvcc -Xptxas -v) and the tensor-core
+   instructions (HMMA/HGMMA lines) in its SASS (cuobjdump --dump-sass).
+   Fails on any spill, or on a backward kernel without tensor-core
+   instructions.
 3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shape (B=4096, D=128, unit-norm rows, temperature
    0.1, duplicate ids, zero-weight rows, log q) and at ragged shapes
-   (B=1000; a 300-row block at offset 500 with D=96). Tolerances: forward
-   outputs rtol 1e-4 / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5.
+   (B=1000; a 300-row block at offset 500 with D=96; B=4097, a ragged
+   tile and slice edge; B=1000 at D=20, depth not a multiple of 8; B=600
+   at D=30, rows not 16-byte aligned, so 4-byte copies; B=512 at D=256,
+   deeper than one tile, unit-norm rows). Tolerances: forward outputs rtol 1e-4
+   / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of dU, and
+   two of dV, must give the same bits.
 4. Small-input check of the whole step: three steps at embedding 32,
    towers [64,32], batch 256, float32 compute, dropout 0, from one state,
    on the card (kernels) and on the CPU (plain versions); loss and
@@ -22,11 +30,23 @@
    set to 0 just before and read just after; every kernel must have run.
    Then 5 more steps under torch.profiler: device time by kernel and the
    device's busy share of the window.
-6. Times: per kernel, the median of 20 CUDA-event timings at the main
-   path's shape, beside its bound, its plain version and a library
-   yardstick (one torch.matmul(u, v.T) at the same shape, which the port
-   never calls). Then one JSON line of kernels, the median step time, and
-   the last line {"ok": true, "device": {...}}.
+6. Times: per kernel, at the main path's shape, the device time of one
+   call, beside its bound, its plain version and a library yardstick (one
+   torch.matmul(u, v.T) at the same shape, which the port never calls).
+   "ms", "plain_ms" and "library_ms" are the median of 20 calls, each
+   between its own two CUDA events (so they also count the host's gap
+   before a short kernel starts); "ms_batched" and "library_ms_batched"
+   are the median of 5 batches of 20 back-to-back calls, each batch
+   between two events; "host_us" is the median host time of 200 calls,
+   each made with the card idle, from the call to its return (the step is
+   host-bound, so a wrapper's host cost counts). The bound is the larger
+   of the bytes time (each input read once, each output written once, at
+   3.35 TB/s) and the lesser of two operation times at float32 accuracy:
+   float32 FMA at 67 TFLOP/s, or three TF32 tensor-core passes at 495
+   TFLOP/s (3x the flops);
+   "bound_route" names the one taken and "share_of_bound" is bound / ms.
+   Then one JSON line of kernels, the median step time, and the last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without a GPU, or without the rest
 of the repository beside it, the script exits non-zero and prints no result.
@@ -36,6 +56,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -51,9 +72,31 @@ NUM_USERS, NUM_ITEMS = 1_000_000, 500_000
 WARMUP_STEPS, MEASURE_STEPS = 5, 20
 TEMP = 0.1
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+# Kernel row name -> (CUDA function, source under twotower_tpu_torch/ops/csrc).
+KERNELS = {
+    "fused_loss_fwd": ("fused_loss_fwd_kernel", "fused_loss.cu"),
+    "fused_loss_bwd_du": ("fused_loss_bwd_du_kernel", "fused_loss_bwd.cu"),
+    "fused_loss_bwd_dv": ("fused_loss_bwd_dv_kernel", "fused_loss_bwd.cu"),
+    # The backward's second pass (adds the slices' partial sums), launched by
+    # the dU and dV entry points: reported, but not a row of its own.
+    "fused_loss_bwd_sum_slices": ("fused_loss_bwd_sum_slices", "fused_loss_bwd.cu"),
+}
+TENSOR_CORE_KERNELS = ("fused_loss_bwd_du", "fused_loss_bwd_dv")
+CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
+    (MAIN_B, MAIN_D, MAIN_B, 0, True),
+    (1000, MAIN_D, 1000, 0, False),
+    (1000, 96, 300, 500, False),
+    (4097, MAIN_D, 4097, 0, True),
+    (1000, 20, 1000, 0, False),
+    (600, 30, 600, 0, False),
+    # Unit-norm rows at D=256: with raw rows the logits reach ~500, and
+    # float32 itself is then at 0.8 of the tolerance against float64.
+    (512, 256, 512, 0, True),
+]
 
 
 def log(msg: str) -> None:
@@ -69,6 +112,8 @@ def card_line() -> str:
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device time of one call: the median of ``reps`` calls, each between
+    its own two CUDA events."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -81,6 +126,41 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_batched(fn, reps: int = 20, batches: int = 5, warm: int = 3) -> float:
+    """Device time of one call: the median over ``batches`` of the mean of
+    ``reps`` back-to-back calls between two CUDA events (without the host's
+    gap before each call that an event pair around one call also counts)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200, warm: int = 3) -> float:
+    """Host time of one call in microseconds: the median of ``reps`` calls,
+    each made with the card idle, from the call to its return."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -105,9 +185,73 @@ def loss_inputs(batch, dim, rows, seed, *, unit=True):
     return u, v, ids, cols, g
 
 
+def ptxas_report(text: str) -> dict[str, list]:
+    """CUDA function (mangled) -> [registers, spill store bytes, spill load
+    bytes], from nvcc's -Xptxas -v output."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, [None, None, None])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
+def sass_tensor_core_counts(lib: Path) -> dict[str, int]:
+    """CUDA function (mangled) -> its HMMA/HGMMA instructions in the SASS."""
+    from twotower_tpu_torch.ops import build
+
+    text = subprocess.run(
+        [build.cuda_tool("cuobjdump"), "--dump-sass", str(lib)],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def build_report(paths: dict[str, Path]) -> dict[str, dict]:
+    """Per kernel: registers, spill bytes and SASS tensor-core instructions.
+    Fails on a spill, or on a backward kernel with no tensor-core
+    instruction."""
+    from twotower_tpu_torch.ops import build
+
+    ptxas = {src: ptxas_report(build.build_logs[src]) for src in paths}
+    sass = {src: sass_tensor_core_counts(lib) for src, lib in paths.items()}
+    report = {}
+    for name, (fn, src) in KERNELS.items():
+        (mangled,) = [k for k in sass[src] if fn in k]
+        regs, spill_st, spill_ld = ptxas[src][mangled]
+        report[name] = {"registers": regs, "spill_bytes": spill_st + spill_ld,
+                        "tensor_core_instructions": sass[src][mangled]}
+        log(f"  {fn} ({src}): {regs} registers, spill stores {spill_st} B, spill loads "
+            f"{spill_ld} B, HMMA/HGMMA instructions in SASS {sass[src][mangled]}")
+    spilled = [k for k, r in report.items() if r["spill_bytes"]]
+    if spilled:
+        raise RuntimeError(f"kernels spill registers: {spilled}")
+    no_tc = [k for k in TENSOR_CORE_KERNELS if not report[k]["tensor_core_instructions"]]
+    if no_tc:
+        raise RuntimeError(f"no tensor-core instruction in the SASS of {no_tc}")
+    return report
+
+
 def check_kernels(shape_cases):
-    """Each kernel against its plain version; returns max abs errors at the
-    first (main-path) case."""
+    """Each kernel against its plain version, and dU and dV twice (the same
+    bits both times); returns max abs errors at the first (main-path)
+    case."""
     from twotower_tpu_torch.ops import kernels
 
     main_err = {}
@@ -129,15 +273,19 @@ def check_kernels(shape_cases):
         bwd_args = (*args, lse, g, 1 / TEMP)
         du, du_ref = kernels.fused_bwd_du(*bwd_args), kernels.bwd_du_plain(*bwd_args)
         dv, dv_ref = kernels.fused_bwd_dv(*bwd_args), kernels.bwd_dv_plain(*bwd_args)
+        du_again, dv_again = kernels.fused_bwd_du(*bwd_args), kernels.fused_bwd_dv(*bwd_args)
         torch.cuda.synchronize()
         torch.testing.assert_close(du, du_ref, rtol=5e-3, atol=1e-5)
         torch.testing.assert_close(dv, dv_ref, rtol=5e-3, atol=1e-5)
+        if not (torch.equal(du, du_again) and torch.equal(dv, dv_again)):
+            raise RuntimeError(f"B={batch} D={dim}: two launches of dU or dV differ")
         errs = {
             "fused_loss_fwd": fwd_err,
             "fused_loss_bwd_du": float((du - du_ref).abs().max()),
             "fused_loss_bwd_dv": float((dv - dv_ref).abs().max()),
         }
-        log(f"  B={batch} D={dim} rows={rows} offset={off}: max abs err {errs}")
+        log(f"  B={batch} D={dim} rows={rows} offset={off}: max abs err {errs}; "
+            "dU, dV bitwise equal over two launches")
         if not main_err:
             main_err = errs
     return main_err
@@ -266,7 +414,7 @@ def profile_steps(step, state, batches, gen, n: int = 5) -> None:
             f"{e.key[:90]}")
 
 
-def kernel_times(errs, launches):
+def kernel_times(errs, launches, report):
     from twotower_tpu_torch.ops import kernels
 
     u, v, ids, cols, g = loss_inputs(MAIN_B, MAIN_D, MAIN_B, seed=7)
@@ -277,7 +425,7 @@ def kernel_times(errs, launches):
     d = MAIN_D
     io_in = (r + b) * d * 4 + 2 * b * 4  # U, V, ids, cols
     specs = [
-        # name, wrapper, plain, flops, bytes, TPU kernel replaced
+        # name, wrapper, plain, arguments, flops, bytes, TPU kernel replaced
         ("fused_loss_fwd", kernels.fused_fwd, kernels.fwd_plain, (*args, 1 / TEMP),
          2 * r * b * d, io_in + 4 * r * 4, "twotower_tpu/ops/pallas_kernels.py:132"),
         ("fused_loss_bwd_du", kernels.fused_bwd_du, kernels.bwd_du_plain, bwd_args,
@@ -286,22 +434,32 @@ def kernel_times(errs, launches):
          4 * r * b * d, io_in + 2 * r * 4 + b * d * 4, "twotower_tpu/ops/pallas_kernels.py:230"),
     ]
     library_ms = time_ms(lambda: torch.matmul(u, v.T))
+    library_ms_batched = time_ms_batched(lambda: torch.matmul(u, v.T))
     rows = []
     for name, fn, plain, fargs, flops, nbytes, replaces in specs:
-        ops_ms = flops / PEAK_F32_FLOPS * 1e3
+        ops_ms, route = min((flops / PEAK_F32_FLOPS * 1e3, "f32_fma"),
+                            (3 * flops / PEAK_TF32_FLOPS * 1e3, "3xtf32"))
         bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        ms = time_ms(lambda: fn(*fargs))
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "twotower_tpu_torch/ops/csrc/fused_loss.cu",
+            "source": f"twotower_tpu_torch/ops/csrc/{KERNELS[name][1]}",
             "replaces": replaces,
             "launches": launches[fn.__name__],
             "max_abs_err": errs[name],
-            "ms": time_ms(lambda: fn(*fargs)),
+            "ms": ms,
+            "ms_batched": time_ms_batched(lambda: fn(*fargs)),
+            "host_us": host_us(lambda: fn(*fargs)),
             "plain_ms": time_ms(lambda: plain(*fargs)),
-            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms,
+            "library_ms_batched": library_ms_batched,
+            "bound_route": route if ops_ms >= bytes_ms else "bytes",
+            "share_of_bound": bound_ms / ms,
+            **report[name],
         })
     return rows
 
@@ -328,17 +486,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = build.build_all()
     log(f"  built {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
-    for src, text in build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  [{src}] {line.strip()}")
+    report = build_report(paths)
 
     log("phase 3: kernels against their plain versions")
-    errs = check_kernels([
-        (MAIN_B, MAIN_D, MAIN_B, 0, True),
-        (1000, MAIN_D, 1000, 0, False),
-        (1000, 96, 300, 500, False),
-    ])
+    errs = check_kernels(CHECK_SHAPES)
 
     log("phase 4: small-input step, card against CPU")
     check_small_step()
@@ -347,7 +498,7 @@ def main() -> int:
     launches, step_ms = run_main_path()
 
     log("phase 6: kernel times")
-    rows = kernel_times(errs, launches)
+    rows = kernel_times(errs, launches, report)
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s")

@@ -76,7 +76,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,dim,rows,off", [(4096, 128, 4096, 0), (1000, 96, 300, 500)])
+@pytest.mark.parametrize(
+    "batch,dim,rows,off",
+    [(4096, 128, 4096, 0), (1000, 96, 300, 500), (4097, 128, 4097, 0), (1000, 20, 1000, 0),
+     (600, 30, 600, 0), (512, 256, 512, 0)],
+)
 def test_cuda_kernels_match_plain(cuda_device, batch, dim, rows, off):
     from twotower_tpu_torch.ops import kernels
 
@@ -104,7 +108,10 @@ def test_cuda_kernels_match_plain(cuda_device, batch, dim, rows, off):
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     lse = ref[1]
-    torch.testing.assert_close(kernels.fused_bwd_du(*args, lse, g, 10.0),
-                               kernels.bwd_du_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
-    torch.testing.assert_close(kernels.fused_bwd_dv(*args, lse, g, 10.0),
-                               kernels.bwd_dv_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
+    du = kernels.fused_bwd_du(*args, lse, g, 10.0)
+    dv = kernels.fused_bwd_dv(*args, lse, g, 10.0)
+    torch.testing.assert_close(du, kernels.bwd_du_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
+    torch.testing.assert_close(dv, kernels.bwd_dv_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
+    # Deterministic: the slices' partial sums are added in a fixed order.
+    assert torch.equal(du, kernels.fused_bwd_du(*args, lse, g, 10.0))
+    assert torch.equal(dv, kernels.fused_bwd_dv(*args, lse, g, 10.0))

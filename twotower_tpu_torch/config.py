@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
@@ -582,13 +583,19 @@ def load_config_for_checkpoint(
     return load_config(path, overrides)
 
 
+_SCIENTIFIC = re.compile(r"^[+-]?\d+(\.\d*)?[eE][+-]?\d+$")
+
+
 def parse_cli_overrides(pairs: list[str]) -> dict[str, Any]:
     """Parse ``key=value`` CLI override strings with YAML-typed values.
 
-    YAML 1.1 treats bare scientific notation (``1e-5``) as a STRING
-    (floats need ``1.0e-5``) — a silent foot-gun for CLI overrides like
-    ``model.l2_regularization=1e-5`` that only explodes later inside a
-    jitted comparison. Numeric-looking strings are coerced here.
+    YAML 1.1 reads bare scientific notation (``1e-5``) as a STRING (floats
+    need ``1.0e-5``), a silent foot-gun for overrides like
+    ``model.l2_regularization=1e-5``: such a string is coerced to a float,
+    and only a string of that exact form, so that ``nan``, ``inf`` or
+    ``Infinity`` given for a name or a path stay strings. YAML 1.1 also
+    reads digit groups (``1_000``) as numbers; such a value stays the
+    string it was typed as.
     """
     out: dict[str, Any] = {}
     for pair in pairs:
@@ -596,13 +603,9 @@ def parse_cli_overrides(pairs: list[str]) -> dict[str, Any]:
             raise ValueError(f"override must be key=value, got {pair!r}")
         key, _, value = pair.partition("=")
         v = yaml.safe_load(value)
-        if isinstance(v, str):
-            try:
-                v = int(v)
-            except ValueError:
-                try:
-                    v = float(v)
-                except ValueError:
-                    pass
+        if isinstance(v, str) and _SCIENTIFIC.match(v):
+            v = float(v)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool) and "_" in value:
+            v = value.strip()
         out[key.strip()] = v
     return out

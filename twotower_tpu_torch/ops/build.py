@@ -5,8 +5,9 @@ Hopper (``sm_90a``) into a shared library with a plain C interface, loaded
 with ``ctypes``. The build runs at first use, into ``build/torch_kernels/``
 beside the package (listed in ``.gitignore``); the library's file name
 carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused. Nothing here runs at import time: the CPU tests
-import every module on a machine with no ``nvcc``.
+an unchanged one is reused; nvcc's report (``-Xptxas -v``: registers and
+spills a kernel) is kept beside it as ``.log``. Nothing here runs at import
+time: the CPU tests import every module on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -26,21 +27,22 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_loss.cu",)
+SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu")
 
 build_logs: dict[str, str] = {}  # source -> nvcc's output (-Xptxas -v: registers, spills)
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.exists():
         return str(cand)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
-            "PATH): the CUDA kernels cannot be built"
+            f"{name} not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels need the CUDA toolkit"
         )
     return found
 
@@ -49,8 +51,9 @@ def _build(source: str) -> Path:
     src = CSRC / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
+    log = out.with_suffix(".log")
     if out.exists():
-        build_logs.setdefault(source, "(cached build)")
+        build_logs.setdefault(source, log.read_text() if log.exists() else "(cached build)")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build to a temporary name and rename: a concurrent build never loads
@@ -58,7 +61,7 @@ def _build(source: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(src)],
         capture_output=True,
         text=True,
         check=False,
@@ -67,6 +70,7 @@ def _build(source: str) -> Path:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    log.write_text(build_logs[source])
     os.replace(tmp, out)
     return out
 

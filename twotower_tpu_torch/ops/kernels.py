@@ -2,11 +2,13 @@
 plain PyTorch versions.
 
 Counterpart of ``twotower_tpu/ops/pallas_kernels.py``. Three kernels
-(``ops/csrc/fused_loss.cu``) replace the two TPU kernels:
+replace the two TPU kernels:
 
-- ``fused_fwd``    <- ``_fwd_call``: per-row ``loss, lse, correct, pos``;
+- ``fused_fwd``    <- ``_fwd_call``: per-row ``loss, lse, correct, pos``
+  (``ops/csrc/fused_loss.cu``);
 - ``fused_bwd_du`` <- ``_bwd_call`` (dU): row-parallel ``dU = dS . V``;
-- ``fused_bwd_dv`` <- ``_bwd_call`` (dV): column-parallel ``dV = dS^T . U``.
+- ``fused_bwd_dv`` <- ``_bwd_call`` (dV): column-parallel ``dV = dS^T . U``
+  (both ``ops/csrc/fused_loss_bwd.cu``).
 
 The TPU kernel accumulated dV across its sequential grid; GPU blocks run in
 parallel, so dV has its own kernel that recomputes S from the saved ``lse``
@@ -14,9 +16,10 @@ parallel, so dV has its own kernel that recomputes S from the saved ``lse``
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
 counts its launches in ``<wrapper>.launches``.
 
-Products are in full float32 (the kernels use plain FMA, never TF32), as
-the JAX wrapper casts U and V to float32 and the reference holds the loss to
-rtol 1e-4.
+Products keep float32 accuracy, as the JAX wrapper casts U and V to
+float32 and the reference holds the loss to rtol 1e-4: the forward uses
+plain float32 FMA, the backward three TF32 tensor-core passes per product
+(``hi.hi + hi.lo + lo.hi``, operands split as ``tf32_split_plain`` does).
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ def supported_block(rows: int, cols: int, dim: int) -> bool:
     """Kernel coverage for a ``[rows, cols]`` score block of depth ``dim``.
 
     The kernels mask ragged edges in every dimension and keep no ``B x B``
-    or ``B x D`` state on chip (a fixed 37 KB of shared memory per block),
-    so the only limits are the 32-bit row/column indices and the grid.
+    or ``B x D`` state on chip (the backward walks depth in chunks of 128
+    with a fixed 210 KB of shared memory per block), so the only limits are
+    the 32-bit row/column indices and the grid.
     """
     return 1 <= rows <= cols <= _INT32_MAX and 1 <= dim <= _INT32_MAX // 2
 
@@ -86,6 +90,21 @@ def bwd_dv_plain(u, v, ids, cols, row_offset, lse, g, inv_temp):
     return _ds_plain(u, v, ids, cols, row_offset, lse, g, inv_temp).T @ u
 
 
+def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' operand split for three TF32 passes:
+    ``hi = rna(x)`` and ``lo = rna(x - hi)``, where ``rna`` rounds a float32
+    to TF32's 10 mantissa bits, to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does. ``hi.hi + hi.lo + lo.hi`` then keeps float32
+    accuracy. Only the tests use it."""
+
+    def rna(t: torch.Tensor) -> torch.Tensor:
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -96,15 +115,33 @@ _F = ctypes.c_float
 
 
 @cache
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("fused_loss.cu")
     lib.tt_fused_loss_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P]
-    bwd_args = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P]
-    lib.tt_fused_loss_bwd_du.argtypes = bwd_args
-    lib.tt_fused_loss_bwd_dv.argtypes = bwd_args
-    for fn in (lib.tt_fused_loss_fwd, lib.tt_fused_loss_bwd_du, lib.tt_fused_loss_bwd_dv):
-        fn.restype = ctypes.c_int
+    lib.tt_fused_loss_fwd.restype = ctypes.c_int
     return lib
+
+
+@cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("fused_loss_bwd.cu")
+    for fn in (lib.tt_fused_loss_bwd_du, lib.tt_fused_loss_bwd_dv):
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P]
+        fn.restype = ctypes.c_int
+    lib.tt_fused_loss_bwd_scratch.argtypes = [_I, _I, _I]
+    lib.tt_fused_loss_bwd_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+@cache
+def _bwd_scratch_floats(own_rows: int, streamed_rows: int, dim: int, device_index: int) -> int:
+    """Scratch a backward kernel takes on a CUDA device for the partial
+    sums of its slices (``tt_fused_loss_bwd_scratch``; 0 for one slice)."""
+    with torch.cuda.device(device_index):
+        n = _bwd_lib().tt_fused_loss_bwd_scratch(own_rows, streamed_rows, dim)
+    if n < 0:
+        raise RuntimeError(f"fused loss backward: scratch size query failed: CUDA error {-n}")
+    return n
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -164,7 +201,7 @@ def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
     rows, batch, dim = _check_cuda(u, v, ids, cols, row_offset)
     out = torch.empty((4, rows), dtype=torch.float32, device=u.device)
     loss, lse, correct, pos = out.unbind(0)
-    rc = _lib().tt_fused_loss_fwd(
+    rc = _fwd_lib().tt_fused_loss_fwd(
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         rows, batch, dim, row_offset, inv_temp,
         loss.data_ptr(), lse.data_ptr(), correct.data_ptr(), pos.data_ptr(),
@@ -177,13 +214,16 @@ def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
 
 def _bwd(fn_name: str, out_rows_of_v: bool, u, v, ids, cols, row_offset, lse, g, inv_temp):
     rows, batch, dim = _check_cuda(u, v, ids, cols, row_offset, lse, g)
-    out = torch.empty(
-        (batch if out_rows_of_v else rows, dim), dtype=torch.float32, device=u.device
-    )
-    rc = getattr(_lib(), fn_name)(
+    own, streamed = (batch, rows) if out_rows_of_v else (rows, batch)
+    out = torch.empty((own, dim), dtype=torch.float32, device=u.device)
+    # The kernel cuts the streamed rows into slices; their partial sums go
+    # to scratch and are added in a fixed order.
+    n = _bwd_scratch_floats(own, streamed, dim, u.device.index)
+    scratch = torch.empty(n, dtype=torch.float32, device=u.device) if n else None
+    rc = getattr(_bwd_lib(), fn_name)(
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         lse.data_ptr(), g.data_ptr(), rows, batch, dim, row_offset, inv_temp,
-        out.data_ptr(), _stream(u),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), _stream(u),
     )
     _raise_on(rc, fn_name)
     return out
