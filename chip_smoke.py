@@ -8,8 +8,8 @@
    into build/torch_kernels/, one nvcc a source, all at once. Per kernel:
    registers and spill bytes (nvcc -Xptxas -v) and the tensor-core
    instructions (HMMA/HGMMA lines) in its SASS (cuobjdump --dump-sass).
-   Fails on any spill, or on a backward kernel without tensor-core
-   instructions.
+   Fails on any spill, or on a forward, dU or dV kernel without
+   tensor-core instructions (HGMMA).
 3. Kernels: each CUDA kernel against its plain PyTorch version on the card,
    at the main path's shape (B=4096, D=128, unit-norm rows, temperature
    0.1, duplicate ids, zero-weight rows, log q) and at ragged shapes
@@ -17,8 +17,8 @@
    tile and slice edge; B=1000 at D=20, depth not a multiple of 8; B=600
    at D=30, rows not 16-byte aligned, so 4-byte copies; B=512 at D=256,
    deeper than one tile, unit-norm rows). Tolerances: forward outputs rtol 1e-4
-   / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of dU, and
-   two of dV, must give the same bits.
+   / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of the
+   forward, two of dU and two of dV must give the same bits.
 4. Small-input check of the whole step: three steps at embedding 32,
    towers [64,32], batch 256, float32 compute, dropout 0, from one state,
    on the card (kernels) and on the CPU (plain versions); loss and
@@ -79,13 +79,19 @@ PEAK_BYTES = 3.35e12
 # Kernel row name -> (CUDA function, source under twotower_tpu_torch/ops/csrc).
 KERNELS = {
     "fused_loss_fwd": ("fused_loss_fwd_kernel", "fused_loss.cu"),
+    # Launched by the forward's entry point, reported but not rows of their
+    # own: the pass that merges the slices' row statistics, and the forward
+    # for depth past 128 (phase 3 runs it at D=256; the main path never does).
+    "fused_loss_fwd_merge": ("fused_loss_fwd_merge_slices", "fused_loss.cu"),
+    "fused_loss_fwd_deep": ("fused_loss_fwd_deep_kernel", "fused_loss.cu"),
     "fused_loss_bwd_du": ("fused_loss_bwd_du_kernel", "fused_loss_bwd.cu"),
     "fused_loss_bwd_dv": ("fused_loss_bwd_dv_kernel", "fused_loss_bwd.cu"),
     # The backward's second pass (adds the slices' partial sums), launched by
     # the dU and dV entry points: reported, but not a row of its own.
     "fused_loss_bwd_sum_slices": ("fused_loss_bwd_sum_slices", "fused_loss_bwd.cu"),
 }
-TENSOR_CORE_KERNELS = ("fused_loss_bwd_du", "fused_loss_bwd_dv")
+TENSOR_CORE_KERNELS = ("fused_loss_fwd", "fused_loss_fwd_deep", "fused_loss_bwd_du",
+                       "fused_loss_bwd_dv")
 CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (MAIN_B, MAIN_D, MAIN_B, 0, True),
     (1000, MAIN_D, 1000, 0, False),
@@ -225,7 +231,7 @@ def sass_tensor_core_counts(lib: Path) -> dict[str, int]:
 
 def build_report(paths: dict[str, Path]) -> dict[str, dict]:
     """Per kernel: registers, spill bytes and SASS tensor-core instructions.
-    Fails on a spill, or on a backward kernel with no tensor-core
+    Fails on a spill, or on a forward, dU or dV kernel with no tensor-core
     instruction."""
     from twotower_tpu_torch.ops import build
 
@@ -249,9 +255,8 @@ def build_report(paths: dict[str, Path]) -> dict[str, dict]:
 
 
 def check_kernels(shape_cases):
-    """Each kernel against its plain version, and dU and dV twice (the same
-    bits both times); returns max abs errors at the first (main-path)
-    case."""
+    """Each kernel against its plain version, and each twice (the same bits
+    both times); returns max abs errors at the first (main-path) case."""
     from twotower_tpu_torch.ops import kernels
 
     main_err = {}
@@ -261,10 +266,13 @@ def check_kernels(shape_cases):
         g = g[off:].contiguous()
         args = (u, v, ids, cols, off)
         got = kernels.fused_fwd(*args, 1 / TEMP)
+        got_again = kernels.fused_fwd(*args, 1 / TEMP)
         ref = kernels.fwd_plain(*args, 1 / TEMP)
         torch.cuda.synchronize()
         for name, a, b in zip(("loss", "lse", "correct", "pos"), got, ref):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=lambda m: f"fwd {name}: {m}")
+        if not all(torch.equal(a, b) for a, b in zip(got, got_again)):
+            raise RuntimeError(f"B={batch} D={dim}: two launches of the forward differ")
         # Error over live rows: a zero-weight row's pos and loss sit near
         # -1e9 / +1e9 by design, where one float32 ulp is 64.
         live = off + torch.arange(rows, device="cuda") < batch - 7
@@ -285,7 +293,7 @@ def check_kernels(shape_cases):
             "fused_loss_bwd_dv": float((dv - dv_ref).abs().max()),
         }
         log(f"  B={batch} D={dim} rows={rows} offset={off}: max abs err {errs}; "
-            "dU, dV bitwise equal over two launches")
+            "forward, dU, dV bitwise equal over two launches")
         if not main_err:
             main_err = errs
     return main_err

@@ -112,6 +112,8 @@ def test_cuda_kernels_match_plain(cuda_device, batch, dim, rows, off):
     dv = kernels.fused_bwd_dv(*args, lse, g, 10.0)
     torch.testing.assert_close(du, kernels.bwd_du_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
     torch.testing.assert_close(dv, kernels.bwd_dv_plain(*args, lse, g, 10.0), rtol=5e-3, atol=1e-5)
-    # Deterministic: the slices' partial sums are added in a fixed order.
+    # Deterministic: the slices' partial results are merged in a fixed order.
+    for a, b in zip(got, kernels.fused_fwd(*args, 10.0)):
+        assert torch.equal(a, b)
     assert torch.equal(du, kernels.fused_bwd_du(*args, lse, g, 10.0))
     assert torch.equal(dv, kernels.fused_bwd_dv(*args, lse, g, 10.0))

@@ -4,10 +4,12 @@ Each ``.cu`` source under ``ops/csrc/`` is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, loaded
 with ``ctypes``. The build runs at first use, into ``build/torch_kernels/``
 beside the package (listed in ``.gitignore``); the library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused; nvcc's report (``-Xptxas -v``: registers and
-spills a kernel) is kept beside it as ``.log``. Nothing here runs at import
-time: the CPU tests import every module on a machine with no ``nvcc``.
+carries a hash of its source, of every header under ``csrc/`` (the sources
+share ``sm90_tf32.cuh``) and of the flags, so an edited source or header
+is rebuilt and an unchanged one is reused; nvcc's report (``-Xptxas -v``:
+registers and spills a kernel) is kept beside it as ``.log``. Nothing here
+runs at import time: the CPU tests import every module on a machine with
+no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -47,9 +49,19 @@ def cuda_tool(name: str) -> str:
     return found
 
 
+def _digest(source: str) -> str:
+    """Hash of what a library is built from: its source, every header under
+    ``csrc/`` (by name and bytes) and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def _build(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = _digest(source)
     out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
     log = out.with_suffix(".log")
     if out.exists():

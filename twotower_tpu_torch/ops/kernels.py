@@ -17,9 +17,12 @@ tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
 counts its launches in ``<wrapper>.launches``.
 
 Products keep float32 accuracy, as the JAX wrapper casts U and V to
-float32 and the reference holds the loss to rtol 1e-4: the forward uses
-plain float32 FMA, the backward three TF32 tensor-core passes per product
-(``hi.hi + hi.lo + lo.hi``, operands split as ``tf32_split_plain`` does).
+float32 and the reference holds the loss to rtol 1e-4: every product of the
+three kernels is three TF32 tensor-core passes (``hi.hi + hi.lo + lo.hi``,
+operands split as ``tf32_split_plain`` does). Each kernel cuts its streamed
+rows into slices that fill the card and merges the slices in a fixed order
+(``fwd_merge_plain`` is the forward's merge), so two launches give the same
+bits.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ def supported_block(rows: int, cols: int, dim: int) -> bool:
     """Kernel coverage for a ``[rows, cols]`` score block of depth ``dim``.
 
     The kernels mask ragged edges in every dimension and keep no ``B x B``
-    or ``B x D`` state on chip (the backward walks depth in chunks of 128
-    with a fixed 210 KB of shared memory per block), so the only limits are
+    or ``B x D`` state on chip (they walk depth in chunks of 128 with a
+    fixed 214 KB or less of shared memory a block), so the only limits are
     the 32-bit row/column indices and the grid.
     """
     return 1 <= rows <= cols <= _INT32_MAX and 1 <= dim <= _INT32_MAX // 2
@@ -72,6 +75,18 @@ def fwd_plain(u, v, ids, cols, row_offset: int, inv_temp: float):
     lse = m + torch.log(torch.exp(s - m[:, None]).sum(dim=1))
     pos = torch.where(diag, s, 0.0).sum(dim=1)
     return lse - pos, lse, (pos >= m).float(), pos
+
+
+def fwd_merge_plain(m, l, pos):
+    """Plain version of the forward's merge pass: from per-slice row
+    statistics ``[slices, R]`` (row max ``m`` over the slice's columns,
+    ``l = sum exp(S - m)`` over them, and the diagonal score ``pos``, 0 in
+    slices without it) to ``(loss, lse, correct, pos)``, each ``[R]``. Only
+    the tests use it."""
+    m_all = m.max(dim=0).values
+    lse = m_all + torch.log((l * torch.exp(m - m_all[None, :])).sum(dim=0))
+    pos = pos.sum(dim=0)
+    return lse - pos, lse, (pos >= m_all).float(), pos
 
 
 def _ds_plain(u, v, ids, cols, row_offset, lse, g, inv_temp):
@@ -117,8 +132,10 @@ _F = ctypes.c_float
 @cache
 def _fwd_lib() -> ctypes.CDLL:
     lib = build.load("fused_loss.cu")
-    lib.tt_fused_loss_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P]
+    lib.tt_fused_loss_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P]
     lib.tt_fused_loss_fwd.restype = ctypes.c_int
+    lib.tt_fused_loss_fwd_scratch.argtypes = [_I, _I, _I]
+    lib.tt_fused_loss_fwd_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -134,13 +151,15 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 @cache
-def _bwd_scratch_floats(own_rows: int, streamed_rows: int, dim: int, device_index: int) -> int:
-    """Scratch a backward kernel takes on a CUDA device for the partial
-    sums of its slices (``tt_fused_loss_bwd_scratch``; 0 for one slice)."""
+def _scratch_floats(lib, query: str, own_rows: int, streamed_rows: int, dim: int,
+                    device_index: int) -> int:
+    """Float32 scratch a kernel takes on a CUDA device for the partial results
+    of the slices it cuts its streamed rows into (the C entry ``query`` of
+    the library ``lib()`` answers; 0 for one slice)."""
     with torch.cuda.device(device_index):
-        n = _bwd_lib().tt_fused_loss_bwd_scratch(own_rows, streamed_rows, dim)
+        n = getattr(lib(), query)(own_rows, streamed_rows, dim)
     if n < 0:
-        raise RuntimeError(f"fused loss backward: scratch size query failed: CUDA error {-n}")
+        raise RuntimeError(f"{query}: scratch size query failed: CUDA error {-n}")
     return n
 
 
@@ -199,13 +218,17 @@ def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
     if _on_cpu(u, v, ids, cols):
         return fwd_plain(u, v, ids, cols, row_offset, inv_temp)
     rows, batch, dim = _check_cuda(u, v, ids, cols, row_offset)
-    out = torch.empty((4, rows), dtype=torch.float32, device=u.device)
-    loss, lse, correct, pos = out.unbind(0)
+    # The kernel cuts the columns into slices; their per-row statistics go
+    # to scratch (after the four outputs, in one allocation) and are merged
+    # in a fixed order.
+    n = _scratch_floats(_fwd_lib, "tt_fused_loss_fwd_scratch", rows, batch, dim, u.device.index)
+    out = torch.empty(4 * rows + n, dtype=torch.float32, device=u.device)
+    loss, lse, correct, pos = out[: 4 * rows].view(4, rows).unbind(0)
     rc = _fwd_lib().tt_fused_loss_fwd(
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         rows, batch, dim, row_offset, inv_temp,
         loss.data_ptr(), lse.data_ptr(), correct.data_ptr(), pos.data_ptr(),
-        _stream(u),
+        out.data_ptr() + 16 * rows if n else None, _stream(u),
     )
     _raise_on(rc, "fused_loss_fwd_kernel")
     fused_fwd.launches += 1
@@ -218,7 +241,8 @@ def _bwd(fn_name: str, out_rows_of_v: bool, u, v, ids, cols, row_offset, lse, g,
     out = torch.empty((own, dim), dtype=torch.float32, device=u.device)
     # The kernel cuts the streamed rows into slices; their partial sums go
     # to scratch and are added in a fixed order.
-    n = _bwd_scratch_floats(own, streamed, dim, u.device.index)
+    n = _scratch_floats(_bwd_lib, "tt_fused_loss_bwd_scratch", own, streamed, dim,
+                        u.device.index)
     scratch = torch.empty(n, dtype=torch.float32, device=u.device) if n else None
     rc = getattr(_bwd_lib(), fn_name)(
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),

@@ -8,10 +8,11 @@ given: ``parent change change parent`` compares two revisions on one card.
 The measurements are this checkout's ``chip_smoke.py`` functions applied to
 each ROOT's package:
 
-- per backward wrapper (``fused_bwd_du``, ``fused_bwd_dv``) at B=4096,
-  D=128: ``ms`` and ``ms_batched`` (device time of a call, as in
-  ``chip_smoke.py`` phase 6) and ``host_us`` (host time of a call, made
-  with the card idle);
+- per kernel wrapper (``fused_fwd``, ``fused_bwd_du``, ``fused_bwd_dv``)
+  at B=4096, D=128: ``ms`` and ``ms_batched`` (device time of a call, as
+  in ``chip_smoke.py`` phase 6), ``host_us`` (host time of a call, made
+  with the card idle) and ``sha256`` (of its outputs' bytes, the same
+  inputs in every run: equal hashes are equal bits);
 - ``step_ms``: the main path of ``chip_smoke.py`` phase 5 (default model,
   batch 4096, 1M x 500k tables, median of 20 steps after 5; every kernel
   must have launched).
@@ -22,6 +23,7 @@ name and power limit. Any failure exits non-zero.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -52,13 +54,20 @@ def measure(root: Path) -> dict:
     u, v, ids, cols, g = smoke.loss_inputs(smoke.MAIN_B, smoke.MAIN_D, smoke.MAIN_B, seed=7)
     inv_temp = 1 / smoke.TEMP
     lse = kernels.fwd_plain(u, v, ids, cols, 0, inv_temp)[1]
-    args = (u, v, ids, cols, 0, lse, g, inv_temp)
+    fwd_args = (u, v, ids, cols, 0, inv_temp)
+    bwd_args = (u, v, ids, cols, 0, lse, g, inv_temp)
     out = {"root": str(root)}
-    for fn in (kernels.fused_bwd_du, kernels.fused_bwd_dv):
-        def call(fn=fn):
+    for fn, args in ((kernels.fused_fwd, fwd_args), (kernels.fused_bwd_du, bwd_args),
+                     (kernels.fused_bwd_dv, bwd_args)):
+        def call(fn=fn, args=args):
             return fn(*args)
 
+        result = call()
+        result = result if isinstance(result, tuple) else (result,)
         out[fn.__name__] = {
+            "sha256": hashlib.sha256(
+                b"".join(t.contiguous().cpu().numpy().tobytes() for t in result)
+            ).hexdigest()[:16],
             "ms": smoke.time_ms(call),
             "ms_batched": smoke.time_ms_batched(call),
             "host_us": smoke.host_us(call),
