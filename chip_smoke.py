@@ -30,7 +30,32 @@
    set to 0 just before and read just after; every kernel must have run.
    Then 5 more steps under torch.profiler: device time by kernel and the
    device's busy share of the window.
-6. Times: per kernel, at the main path's shape, the device time of one
+6. Card against CPU, small: the train-model and evaluate-model CLIs, in
+   process through main(argv), at the CLI tests' sizes (200 users, 100
+   items, 5000 interactions, embedding 16, towers [32,16], batch 64,
+   float32 compute, dropout 0, two epochs), once with --device cuda and
+   once with --device cpu: per-epoch losses rtol 1e-4; validation and test
+   metrics within one rank flip (1/rows). Then topk_mips_twopass on the
+   card against one full torch.topk of the whole [B, N] score matrix at
+   B=4096, N=100,000, D=128, k=100: ids equal except between exactly tied
+   scores, scores rtol 1e-6.
+7. The slice at full width: train-model with the default model (embedding
+   128, towers [512,256,128], bf16 compute, dropout 0.1, log q, lazy-Adam
+   tables, host dedup), batch 4096, two epochs, validation every epoch, on
+   --synthetic-users 200000 --synthetic-items 100000
+   --synthetic-interactions 4000000 (the device draw), into
+   build/chip_smoke_slice/; then evaluate-model on its checkpoint. Launch
+   counts set to 0 just before train-model and read just after: forward,
+   dU and dV each launched once a step. Checks: finite losses, best val
+   recall@10 at least 10x random (10 / items), evaluate-model's test
+   metrics equal to train_summary.json's within 1e-6 (when the best step
+   is the last; else its val recall@10 equals the best val metric), a
+   checkpoint with meta.json. Prints the Trainer's steady and train
+   examples/s, and the evaluation's device ms per 4096-row batch over the
+   corpus (median of 10 batches, CUDA events) beside its bound (the larger
+   of the corpus bytes at 3.35 TB/s and 2*B*N*D float32 FMA at 67 TFLOP/s)
+   and one float32 torch.matmul of the same shape.
+8. Times: per kernel, at the main path's shape, the device time of one
    call, beside its bound, its plain version and a library yardstick (one
    torch.matmul(u, v.T) at the same shape, which the port never calls).
    "ms", "plain_ms" and "library_ms" are the median of 20 calls, each
@@ -398,9 +423,19 @@ def run_main_path():
 
 
 def profile_steps(step, state, batches, gen, n: int = 5) -> None:
-    """Device time by kernel over ``n`` main-path steps (torch.profiler),
-    and the device's busy share of the window's wall time (the profiler's
-    own cost inflates the wall time, so the share is a lower bound)."""
+    """Device time by kernel over ``n`` main-path steps."""
+    box = [state]
+
+    def one(i):
+        box[0], _ = step(box[0], batches[i % len(batches)], gen)
+
+    profile_device(one, n, "step")
+
+
+def profile_device(fn, n: int, per: str) -> None:
+    """Device time by kernel over ``n`` calls ``fn(i)`` (torch.profiler), and
+    the device's busy share of the window's wall time (the profiler's own
+    cost inflates the wall time, so the share is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -408,18 +443,221 @@ def profile_steps(step, state, batches, gen, n: int = 5) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for i in range(n):
-            state, _ = step(state, batches[i % len(batches)], gen)
+            fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     # Device-side events only (kernels, copies): the host ops that launched
     # them report the same time again.
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    log(f"  profile of {n} steps: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    log(f"  profile of {n} {per}s: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({busy_ms / wall_ms:.3f} of wall)")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:15]:
-        log(f"    {e.self_device_time_total / 1e3 / n:9.4f} ms/step  x{e.count / n:5.1f}  "
+        log(f"    {e.self_device_time_total / 1e3 / n:9.4f} ms/{per}  x{e.count / n:5.1f}  "
             f"{e.key[:90]}")
+
+
+SMALL_DATA = ["--synthetic", "--synthetic-users", "200", "--synthetic-items", "100",
+              "--synthetic-interactions", "5000"]
+SMALL_TRAIN = [
+    "--writers", "jsonl", "--override",
+    "training.batch_size=64", "training.epochs=2", "model.embedding_dim=16",
+    "model.user_tower_dims=[32,16]", "model.item_tower_dims=[32,16]",
+    "model.compute_dtype=float32", "model.dropout_rate=0.0",
+    "preprocessing.min_interactions_per_user=2",
+    "preprocessing.min_interactions_per_item=2",
+]
+SLICE_DATA = ["--synthetic", "--synthetic-users", "200000", "--synthetic-items", "100000",
+              "--synthetic-interactions", "4000000"]
+SLICE_TRAIN = ["--writers", "jsonl", "--override", f"training.batch_size={MAIN_B}",
+               "training.epochs=2"]
+EVAL_B = 4096
+
+
+def run_cli(main_fn, argv) -> dict:
+    """One CLI run in process; returns the JSON it prints last."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise RuntimeError(f"{main_fn.__module__} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def epoch_records(ckpt: Path) -> list[dict]:
+    lines = (ckpt / "metrics.jsonl").read_text().splitlines()
+    return [r for r in map(json.loads, lines) if "epoch" in r]
+
+
+def fresh_dir(path: Path) -> Path:
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def check_cli_card_vs_cpu():
+    """The two CLIs on the card and on the CPU at the tests' sizes: per-epoch
+    losses rtol 1e-4, val and test metrics within one rank flip."""
+    from twotower_tpu_torch.evaluation.evaluate import main as eval_main
+    from twotower_tpu_torch.training.train import main as train_main
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        ckpt = fresh_dir(ROOT / "build" / "chip_smoke_cli" / dev)
+        args = ["--device", dev, "--checkpoint-dir", str(ckpt)]
+        summary = run_cli(train_main, args + SMALL_DATA + SMALL_TRAIN)
+        evals = {sub: run_cli(eval_main, args + SMALL_DATA + ["--subset", sub])
+                 for sub in ("val", "test")}
+        got[dev] = (epoch_records(ckpt), summary, evals)
+    (rec_g, sum_g, ev_g), (rec_c, sum_c, ev_c) = got["cuda"], got["cpu"]
+    np.testing.assert_allclose([r["loss"] for r in rec_g], [r["loss"] for r in rec_c],
+                               rtol=1e-4)
+    val_flip, test_flip = 1.0 / ev_c["val"]["rows"], 1.0 / ev_c["test"]["rows"]
+    for a, b in zip(rec_g, rec_c):
+        for k in [k for k in b if k.startswith("val/")]:
+            if abs(a[k] - b[k]) > val_flip:
+                raise RuntimeError(f"{k}: card {a[k]} cpu {b[k]} (flip {val_flip})")
+    for which, a, b, flip in (("train summary", sum_g["test"], sum_c["test"], test_flip),
+                              ("evaluate test", ev_g["test"]["metrics"],
+                               ev_c["test"]["metrics"], test_flip),
+                              ("evaluate val", ev_g["val"]["metrics"],
+                               ev_c["val"]["metrics"], val_flip)):
+        bad = {k: (a[k], b[k]) for k in b if abs(a[k] - b[k]) > flip}
+        if bad:
+            raise RuntimeError(f"{which}: card and CPU differ past one rank flip: {bad}")
+    log(f"  per-epoch loss cuda {[r['loss'] for r in rec_g]} cpu {[r['loss'] for r in rec_c]}; "
+        f"test recall@10 cuda {sum_g['test']['recall@10']} cpu {sum_c['test']['recall@10']}")
+
+
+def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
+    """topk_mips_twopass against one full torch.topk of the [B, N] scores."""
+    from twotower_tpu_torch.ops.topk import float32_products, topk_mips_twopass
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(b, d, generator=gen, device="cuda")
+    c = torch.randn(n, d, generator=gen, device="cuda")
+    vals, ids = topk_mips_twopass(q, c, k)
+    with float32_products():
+        ref_vals, ref_ids = torch.topk(q @ c.T, k, dim=1)
+    torch.testing.assert_close(vals, ref_vals, rtol=1e-6, atol=0)
+    differ = ids != ref_ids
+    # Where the ids differ the scores must be tied: each id's own score.
+    with float32_products():
+        own = torch.einsum("bkd,bd->bk", c[ids[differ.any(1)]], q[differ.any(1)])
+        own_ref = torch.einsum("bkd,bd->bk", c[ref_ids[differ.any(1)]], q[differ.any(1)])
+    torch.testing.assert_close(own[differ[differ.any(1)]], own_ref[differ[differ.any(1)]],
+                               rtol=1e-6, atol=0)
+    rel = float(((vals - ref_vals).abs() / ref_vals.abs()).max())
+    log(f"  two-pass top-{k} at B={b} N={n} D={d}: scores within rtol 1e-6 of one full "
+        f"torch.topk (max relative difference {rel}); {int(differ.sum())} of "
+        f"{differ.numel()} ids differ (tied scores)")
+
+
+def eval_batch_times(ckpt: Path, card: str):
+    """Device ms of one evaluation batch (EVAL_B rows) over the encoded
+    corpus of the slice's checkpoint, beside its bound and one float32
+    torch.matmul of the same shape."""
+    from twotower_tpu_torch.config import load_config_for_checkpoint
+    from twotower_tpu_torch.data.vocab import VocabPair
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.evaluation.evaluate import restore_params
+    from twotower_tpu_torch.evaluation.metrics import metrics_at_k
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops.topk import float32_products, topk_mips_twopass
+
+    cfg = load_config_for_checkpoint(ckpt)
+    vocab = VocabPair.load(ckpt / "vocab")
+    nu, ni = len(vocab.users), len(vocab.items)
+    params, _ = restore_params(cfg, ckpt, nu, ni, device="cuda")
+    ev = Evaluator(cfg, ni, batch_size=EVAL_B, device="cuda")
+    corpus = ev._encode_corpus(params)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    users = torch.randint(0, nu, (EVAL_B,), generator=gen, device="cuda")
+    items = torch.randint(0, ni, (EVAL_B,), generator=gen, device="cuda")
+
+    def batch():
+        u = two_tower.embed_users(params, users, cfg.model)
+        _, idx = topk_mips_twopass(u, corpus, ev.max_k, chunk_size=ev.corpus_chunk_size)
+        return metrics_at_k(idx, items, ev._ks_used)
+
+    with torch.no_grad():
+        ms = time_ms(batch, reps=10)
+        profile_device(lambda i: batch(), 3, "batch")
+        u = two_tower.embed_users(params, users, cfg.model)
+        with float32_products():
+            matmul_ms = time_ms(lambda: u @ corpus.T, reps=10)
+    d = corpus.shape[1]
+    ops_ms = 2 * EVAL_B * ni * d / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (ni * d + EVAL_B * d) * 4 / PEAK_BYTES * 1e3
+    log(f"eval ms per {EVAL_B}-row batch over {ni} items (D={d}, k={ev.max_k}): {ms:.4f}; "
+        f"bound {max(ops_ms, bytes_ms):.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
+        f"f32 FMA {ops_ms:.4f}, bytes {bytes_ms:.4f}); one float32 torch.matmul "
+        f"{matmul_ms:.4f} ({card})")
+
+
+def run_slice(card: str) -> dict[str, int]:
+    """train-model then evaluate-model at full width; returns the kernels'
+    launch counts over the train-model run."""
+    from twotower_tpu_torch.evaluation.evaluate import main as eval_main
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.train import main as train_main
+
+    ckpt = fresh_dir(ROOT / "build" / "chip_smoke_slice")
+    args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    summary = run_cli(train_main, args + SLICE_DATA + SLICE_TRAIN)
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    t_train = time.perf_counter() - t0
+    records = epoch_records(ckpt)
+    steps = int(records[-1]["step"])
+    losses = [r["loss"] for r in records]
+    step_losses = [json.loads(x).get("train/loss") for x in
+                   (ckpt / "metrics.jsonl").read_text().splitlines()]
+    if not all(math.isfinite(x) for x in losses + [x for x in step_losses if x is not None]):
+        raise RuntimeError(f"non-finite loss in train-model: {losses}")
+    if any(v != steps for v in launches.values()):
+        raise RuntimeError(f"launches {launches} != {steps} steps of train-model")
+    random_recall = 10 / summary["num_items"]
+    if summary["best_val_metric"] < 10 * random_recall:
+        raise RuntimeError(f"best val recall@10 {summary['best_val_metric']} under 10x "
+                           f"random ({10 * random_recall})")
+    best = summary["best_step"]
+    if not (ckpt / f"step_{best:010d}" / "meta.json").exists():
+        raise RuntimeError(f"no checkpoint with meta.json at step {best}")
+    t1 = time.perf_counter()
+    ev = run_cli(eval_main, args + SLICE_DATA + ["--subset", "test"])
+    t_eval = time.perf_counter() - t1
+    if ev["checkpoint_step"] != best:
+        raise RuntimeError(f"evaluate-model restored step {ev['checkpoint_step']}, best {best}")
+    if best == steps:  # the checkpoint is the state train-model tested
+        bad = {k: (ev["metrics"][k], v) for k, v in summary["test"].items()
+               if abs(ev["metrics"][k] - v) > 1e-6}
+        check = "evaluate-model test metrics equal train_summary.json's within 1e-6"
+    else:  # the summary's test metrics are of the last state, not the best
+        val = run_cli(eval_main, args + SLICE_DATA + ["--subset", "val"])["metrics"]
+        bad = ({"recall@10": (val["recall@10"], summary["best_val_metric"])}
+               if abs(val["recall@10"] - summary["best_val_metric"]) > 1e-6 else {})
+        check = "evaluate-model val recall@10 equals the best val metric within 1e-6"
+    if bad:
+        raise RuntimeError(f"evaluate-model disagrees with train-model: {bad}")
+    log(f"  train-model: {len(records)} epochs, {steps} steps, {summary['num_users']} users x "
+        f"{summary['num_items']} items, losses {losses}, val recall@10 "
+        f"{[r.get('val/recall@10') for r in records]} (10x random {10 * random_recall}), "
+        f"test recall@10 {summary['test']['recall@10']}; {t_train:.1f} s; "
+        f"launches {launches} (one a step)")
+    log(f"  evaluate-model: step {ev['checkpoint_step']}, {ev['rows']} rows, recall@10 "
+        f"{ev['metrics']['recall@10']}; {check}; {t_eval:.1f} s")
+    log(f"steady_examples_per_sec {summary['steady_examples_per_sec']} ({card})")
+    log(f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
+    eval_batch_times(ckpt, card)
+    return {"fused_loss_fwd": launches["fused_fwd"],
+            "fused_loss_bwd_du": launches["fused_bwd_du"],
+            "fused_loss_bwd_dv": launches["fused_bwd_dv"]}
 
 
 def kernel_times(errs, launches, report):
@@ -505,8 +743,17 @@ def main() -> int:
     log("phase 5: main path")
     launches, step_ms = run_main_path()
 
-    log("phase 6: kernel times")
+    log("phase 6: train-model and evaluate-model, card against CPU, small")
+    check_cli_card_vs_cpu()
+    check_twopass()
+
+    log("phase 7: train-model and evaluate-model at full width")
+    slice_launches = run_slice(card)
+
+    log("phase 8: kernel times")
     rows = kernel_times(errs, launches, report)
+    for row in rows:
+        row["launches_train_model"] = slice_launches[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s")

@@ -40,7 +40,10 @@ def test_port_imports_no_jax(path):
 def test_hygiene_check_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "twotower_tpu_torch/ops/kernels.py",
-            "twotower_tpu_torch/training/sparse.py"} <= names
+            "twotower_tpu_torch/training/sparse.py",
+            "twotower_tpu_torch/data/pipeline.py",
+            "twotower_tpu_torch/evaluation/evaluator.py",
+            "twotower_tpu_torch/utils/checkpoint.py"} <= names
 
 
 def _small():
@@ -66,6 +69,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         init_train_state(cfg, opt, 10, 10, device="cuda")
     state = init_train_state(cfg, opt, 10, 10, device="cpu")
     assert state.params["user_embedding"].device.type == "cpu"
+
+
+def test_trainer_evaluator_and_clis_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.evaluation.evaluate import main as eval_main
+    from twotower_tpu_torch.training import Trainer
+    from twotower_tpu_torch.training.train import main as train_main
+
+    cfg = _small()
+    for make in (lambda: Trainer(cfg), lambda: Evaluator(cfg, 10),
+                 lambda: train_main(["--synthetic", "--checkpoint-dir", str(tmp_path)]),
+                 lambda: eval_main(["--synthetic", "--checkpoint-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Trainer(cfg, device="cpu").device.type == "cpu"
+    assert Evaluator(cfg, 10, device="cpu").device.type == "cpu"
+    assert not any(tmp_path.iterdir())  # the CLIs raised before any work
 
 
 @pytest.fixture()

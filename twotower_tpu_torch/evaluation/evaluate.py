@@ -1,0 +1,180 @@
+"""``evaluate-model`` for the PyTorch port:
+``python -m twotower_tpu_torch.evaluation.evaluate``.
+
+Counterpart of ``twotower_tpu/evaluation/evaluate.py`` on the in-memory data
+path (``--synthetic`` or ``--data``): restores a checkpoint of
+``train-model`` (the best-metric step unless ``--step`` pins one), rebuilds
+the held-out split with the SAME deterministic preprocessing and the
+checkpoint's vocab, and reports Recall@K / NDCG@K / MRR over the full
+corpus. ``--prepared-dir`` and ``--mesh`` exit with a ROADMAP.md pointer.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from twotower_tpu_torch.config import Config, load_config_for_checkpoint, parse_cli_overrides
+from twotower_tpu_torch.logging_utils import get_logger, setup_logging
+
+logger = get_logger(__name__)
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="evaluate-model",
+        description="Evaluate a trained two-tower checkpoint (PyTorch port)",
+    )
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--override", nargs="*", default=[], metavar="KEY=VALUE")
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="device to evaluate on (default cuda; there is no fallback to the CPU)",
+    )
+    p.add_argument("--checkpoint-dir", type=str, required=True)
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: the best-metric step)")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--data", type=str, default=None, help="interactions parquet")
+    src.add_argument(
+        "--prepared-dir", type=str, default=None,
+        help="prepare-data artifact directory (not ported yet)",
+    )
+    src.add_argument("--synthetic", action="store_true")
+    p.add_argument("--synthetic-users", type=int, default=2000)
+    p.add_argument("--synthetic-items", type=int, default=1000)
+    p.add_argument("--synthetic-interactions", type=int, default=100_000)
+    p.add_argument("--split", choices=["temporal", "random"], default="temporal")
+    p.add_argument("--subset", choices=["val", "test"], default="test",
+                   help="which held-out slice to score")
+    p.add_argument(
+        "--rows", type=int, default=None,
+        help="cap scoring to a strided subsample of this many held-out rows "
+        "(the stride rule of train-model --val-rows)",
+    )
+    p.add_argument("--mesh", action="store_true",
+                   help="evaluate over the device mesh (not ported yet)")
+    return p
+
+
+def _capped(user_idx, item_idx, rows: int | None):
+    """Strided subsample (the rule of train-model's ``--val-rows``)."""
+    from twotower_tpu_torch.training.train import strided_subsample
+
+    if not rows:
+        return user_idx, item_idx
+    sel = strided_subsample(len(user_idx), rows)
+    return user_idx[sel], item_idx[sel]
+
+
+def restore_params(
+    config: Config, ckpt_dir: Path, num_users: int, num_items: int,
+    step: int | None = None, *, device=None,
+):
+    """Restore params from a checkpoint via a freshly initialized template
+    on ``device``. With no ``step``, the best-metric durable step is
+    preferred over the newest one: after async save starvation the newest
+    checkpoint is the post-patience final state."""
+    import torch
+
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.training.state import TrainState, make_optimizer
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+    from twotower_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    optimizer = make_optimizer(config.training)
+    params = two_tower.init_params(
+        torch.Generator(device=dev).manual_seed(0), config.model, num_users, num_items
+    )
+    template = TrainState.for_config(params, optimizer, config)
+    manager = CheckpointManager(ckpt_dir)
+    if step is None:
+        step = manager.best_step()
+        if step is not None and step != manager.latest_step():
+            logger.warning(
+                "restoring best-metric checkpoint step %d (latest is %d)",
+                step, manager.latest_step(),
+            )
+    state, meta = manager.restore(template, step=step)
+    if meta.get("post_starvation_final"):
+        logger.warning(
+            "restored checkpoint is the POST-STARVATION FINAL state, not "
+            "the best epoch: the best validation (%.6g) was achieved at a "
+            "step whose save was skipped; metrics from this restore will "
+            "be worse than train_summary.json's best",
+            meta.get("metrics", {}).get("best_val_at_stop", float("nan")),
+        )
+    return state.params, meta
+
+
+def run(args, config: Config) -> dict:
+    from twotower_tpu_torch.data import Preprocessor
+    from twotower_tpu_torch.data.vocab import VocabPair
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.training.train import load_interactions
+
+    ckpt_dir = Path(args.checkpoint_dir)
+    data = load_interactions(args)
+    pp = Preprocessor(config.preprocessing)
+    vocab_dir = ckpt_dir / "vocab"
+    if vocab_dir.exists():
+        # The training-time id spaces: mandatory for checkpoint parity.
+        pp.vocab = VocabPair.load(vocab_dir)
+        data = pp.basic_cleaning(data)
+        data = pp.process_text(data)
+        data = pp.interaction_filter.filter(data)
+        data = data.with_columns(
+            user_idx=pp.vocab.users.encode(data.user_id),
+            item_idx=pp.vocab.items.encode(data.item_id),
+        )
+        known = (data.user_idx >= 0) & (data.item_idx >= 0)
+        data = data.select(np.nonzero(known)[0])
+    else:
+        logger.warning("no vocab manifest at %s; rebuilding ids from data", vocab_dir)
+        data = pp.process(data)
+
+    splits = pp.split_data(data, method=args.split)
+    subset = splits.val if args.subset == "val" else splits.test
+    num_users, num_items = len(pp.vocab.users), len(pp.vocab.items)
+    params, meta = restore_params(
+        config, ckpt_dir, num_users, num_items, step=args.step, device=args.device
+    )
+    evaluator = Evaluator(config, num_items, device=args.device)
+    eu, ei = _capped(subset.user_idx, subset.item_idx, getattr(args, "rows", None))
+    metrics = evaluator.evaluate(params, eu, ei)
+    return {
+        "subset": args.subset,
+        "rows": len(eu),
+        "num_items": num_items,
+        "checkpoint_step": meta.get("step"),
+        "metrics": metrics,
+    }
+
+
+def main(argv: list[str] | None = None) -> int:
+    from twotower_tpu_torch.utils.platform import resolve_device
+
+    setup_logging()
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if args.prepared_dir:
+        parser.error("--prepared-dir is not ported yet (ROADMAP.md, Queue 1: the "
+                     "prepared-dir and streaming slice)")
+    if args.mesh:
+        parser.error("--mesh is not ported yet (ROADMAP.md, Queue 1: multi-GPU)")
+    resolve_device(args.device)  # no GPU: raise before any work
+    config = load_config_for_checkpoint(
+        args.checkpoint_dir, args.config, parse_cli_overrides(args.override)
+    )
+    result = run(args, config)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,138 @@
+"""Full-corpus retrieval evaluator, exact mode (PyTorch).
+
+Counterpart of ``twotower_tpu/evaluation/evaluator.py``: encode the whole
+item corpus through the candidate tower once per evaluation (chunked, on the
+device), then stream user batches through the query tower -> exact MIPS
+top-k (``ops.topk.topk_mips_twopass``) -> metrics. Exact brute-force scoring,
+so metrics are deterministic up to tie order.
+
+The metric sums stay on the device across batches and are read once at the
+end (the counterpart of the JAX evaluator's single fetch after its
+``lax.scan``). The JAX evaluator's time-budgeted scan segments guard a
+watchdog of its TPU transport and have no counterpart here:
+``retrieval.eval_device_scan`` and ``retrieval.eval_scan_budget_s`` are
+accepted and change nothing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from twotower_tpu_torch.config import Config
+from twotower_tpu_torch.evaluation.metrics import metrics_at_k
+from twotower_tpu_torch.logging_utils import get_logger
+from twotower_tpu_torch.models import two_tower
+from twotower_tpu_torch.ops.topk import exact_scan_chunk, topk_mips_twopass
+from twotower_tpu_torch.utils.platform import resolve_device
+
+logger = get_logger(__name__)
+
+
+class Evaluator:
+    """Recall@K / NDCG@K / MRR over the full item corpus."""
+
+    @staticmethod
+    def auto_chunk_size(num_items: int, batch_size: int) -> int:
+        """Corpus-stream chunk for the exact search: ``exact_scan_chunk``
+        (power of two, 2 GB score budget, 131072 cap), CLAMPED to the corpus
+        size rounded up to the 64-row two-pass block, so a small corpus is
+        not padded to a 131072-row chunk."""
+        chunk = exact_scan_chunk(batch_size)
+        if num_items < chunk:
+            chunk = max(64, -(-num_items // 64) * 64)
+        return chunk
+
+    def __init__(
+        self,
+        config: Config,
+        num_items: int,
+        *,
+        batch_size: int = 4096,
+        corpus_chunk_size: int | None = None,
+        item_tokens=None,
+        mesh=None,
+        device: str | torch.device | None = None,
+    ):
+        if not config.retrieval.eval_exact:
+            raise NotImplementedError(
+                "approximate evaluation (retrieval.eval_exact=false) is not ported "
+                "yet (ROADMAP.md, Queue 1: serving, approximate top-k)"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
+            )
+        if item_tokens is not None:
+            raise NotImplementedError(
+                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.num_items = num_items
+        self.ks = tuple(sorted(config.retrieval.top_k_eval))
+        self.max_k = min(max(self.ks), num_items)
+        self.batch_size = batch_size
+        # Explicit chunks round down to the two-pass block multiple, as the
+        # search itself does; the chunk bounds the [batch, chunk] scores.
+        self.corpus_chunk_size = (
+            max(64, corpus_chunk_size // 64 * 64)
+            if corpus_chunk_size is not None
+            else self.auto_chunk_size(num_items, batch_size)
+        )
+        self._ks_used = tuple(k for k in self.ks if k <= self.max_k) or (self.max_k,)
+
+    def _encode_corpus(self, params) -> torch.Tensor:
+        """The corpus ``[num_items, D]``, encoded once per evaluation. Not
+        padded: the JAX evaluator pads it to the chunk multiple once so that
+        its search need not pad a copy on every batch; the port's search
+        reads slices of the corpus and never copies it, and padding rows
+        would only add columns to the score product."""
+        return two_tower.embed_item_table(params, self.config.model, self.num_items)
+
+    @torch.no_grad()
+    def evaluate(
+        self,
+        params,
+        user_idx: np.ndarray,
+        item_idx: np.ndarray,
+    ) -> dict[str, float]:
+        """Single-positive protocol: for each (user, held-out item) row, rank
+        the full corpus for the user and score where the item lands."""
+        mcfg = self.config.model
+        corpus = self._encode_corpus(params)
+        users = torch.as_tensor(np.asarray(user_idx, np.int64)).to(self.device)
+        items = torch.as_tensor(np.asarray(item_idx, np.int64)).to(self.device)
+        keys = (
+            [f"recall@{k}" for k in self._ks_used]
+            + [f"ndcg@{k}" for k in self._ks_used]
+            + ["mrr"]
+        )
+        sums = torch.zeros(len(keys), device=self.device)
+        n = len(users)
+        for start in range(0, n, self.batch_size):
+            bu = users[start : start + self.batch_size]
+            bi = items[start : start + self.batch_size]
+            user_emb = two_tower.embed_users(params, bu, mcfg, train=False)
+            _, topk_idx = topk_mips_twopass(
+                user_emb, corpus, self.max_k, chunk_size=self.corpus_chunk_size
+            )
+            m = metrics_at_k(topk_idx, bi, self._ks_used)
+            # metrics_at_k returns means over the batch's rows; times the row
+            # count they are sums.
+            sums += torch.stack([m[k] for k in keys]) * len(bu)
+        host = sums.tolist()  # the one device-to-host read
+        out = {k: v / max(n, 1e-12) for k, v in zip(keys, host)} if n else {}
+        logger.info(
+            "evaluated %d rows over %d items: %s",
+            n, self.num_items, {k: round(v, 4) for k, v in sorted(out.items())},
+        )
+        return out
+
+    def make_evaluate_fn(self, user_idx: np.ndarray, item_idx: np.ndarray):
+        """Bind an eval split for the Trainer's ``evaluate_fn`` hook."""
+
+        def fn(params) -> dict[str, float]:
+            return self.evaluate(params, user_idx, item_idx)
+
+        return fn

@@ -217,6 +217,28 @@ def embed_items(
     )
 
 
+@torch.no_grad()
+def embed_item_table(
+    params: Params,
+    config: ModelConfig,
+    num_items: int,
+    *,
+    chunk_size: int = 65536,
+) -> torch.Tensor:
+    """Materialize the item-corpus embedding matrix ``[num_items, D]`` by
+    streaming the table through the candidate tower in chunks of rows (eval
+    mode: no dropout) — the corpus encode pass of evaluation and index
+    building. Counterpart of the JAX ``embed_item_table``, which maps the
+    tower over the whole padded table; only the ``num_items`` real rows are
+    encoded here, and each row's output does not depend on its chunk."""
+    table = params["item_embedding"]
+    parts = [
+        apply_item_tower(params, table[start : min(start + chunk_size, num_items)], config)
+        for start in range(0, num_items, chunk_size)
+    ]
+    return torch.cat(parts)
+
+
 def forward(
     params: Params,
     user_idx: torch.Tensor,

@@ -1,6 +1,6 @@
-"""Training of the PyTorch port: state, optimizer, sparse step."""
+"""Training of the PyTorch port: state, optimizer, sparse step, Trainer."""
 
-from twotower_tpu_torch.training.loop import make_train_step
+from twotower_tpu_torch.training.loop import Trainer, TrainResult, make_train_step
 from twotower_tpu_torch.training.state import (
     Adam,
     TrainState,
@@ -8,4 +8,12 @@ from twotower_tpu_torch.training.state import (
     make_optimizer,
 )
 
-__all__ = ["Adam", "TrainState", "init_train_state", "make_optimizer", "make_train_step"]
+__all__ = [
+    "Adam",
+    "TrainResult",
+    "TrainState",
+    "Trainer",
+    "init_train_state",
+    "make_optimizer",
+    "make_train_step",
+]

@@ -1,20 +1,29 @@
-"""Train-step factory (PyTorch).
+"""Train step, segment runner and the epoch loop with early stopping
+(PyTorch).
 
-Counterpart of ``make_train_step`` in ``twotower_tpu/training/loop.py``,
-sparse branch only; the dense step, the Trainer and the segment runner are
-queued in ROADMAP.md.
+Counterpart of ``twotower_tpu/training/loop.py``, single device, sparse
+branch: the host loop feeds fixed-shape batches through a background
+prefetcher (host dedup on its thread), reads each dispatch's metrics one
+dispatch late, validates, early-stops, saves on improvement and persists
+progress on preemption. The dense step, the mesh path and text tokens raise
+with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from twotower_tpu_torch.config import Config
-from twotower_tpu_torch.training.state import Adam, TrainState
+from twotower_tpu_torch.logging_utils import get_logger
+from twotower_tpu_torch.training.state import Adam, TrainState, make_optimizer
 from twotower_tpu_torch.utils.platform import resolve_device
+
+logger = get_logger(__name__)
 
 TrainStepFn = Callable[[TrainState, dict, Any], tuple[TrainState, dict]]
 
@@ -51,3 +60,337 @@ def make_train_step(
         return raw(state, on_dev, rng, lq)
 
     return step
+
+
+def make_segment_runner(step: TrainStepFn):
+    """``runner(state, batches, rng)`` steps through ``batches`` — a batch
+    dict whose tensors carry a leading segment axis ``[S, B, ...]`` — and
+    returns ``(state, mean metrics)``: the counterpart of the JAX package's
+    ``lax.scan`` over a segment (``training.segment_steps``). Metrics are
+    means over the segment (a positive per-step ``dropped_ids`` stays
+    positive in the mean)."""
+
+    def runner(state: TrainState, batches: dict, rng: Any):
+        n = int(next(iter(batches.values())).shape[0])
+        stacked: dict[str, list] = {}
+        for s in range(n):
+            state, m = step(state, {k: v[s] for k, v in batches.items()}, rng)
+            for k, v in m.items():
+                stacked.setdefault(k, []).append(v)
+        return state, {k: torch.stack(v).mean() for k, v in stacked.items()}
+
+    return runner
+
+
+def pack_segments(batches, segment_steps: int):
+    """Group an epoch's batch dicts into stacked ``[S, ...]`` segment dicts
+    (host-side, runs on the prefetch thread). The final segment carries the
+    epoch remainder (shorter leading axis)."""
+    buf: list[dict] = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == segment_steps:
+            yield {k: np.stack([x[k] for x in buf]) for k in buf[0]}
+            buf = []
+    if buf:
+        yield {k: np.stack([x[k] for x in buf]) for k in buf[0]}
+
+
+def ensure_final_persisted(manager, state, stopper: "EarlyStopping", *, epoch: int) -> None:
+    """Async save-starvation backstop: when saves are slower than the
+    improvement cadence, every improving-epoch save after the first can be
+    busy-skipped, leaving the newest durable checkpoint many epochs behind
+    the best validation. After the final flush, if the newest durable step
+    predates the best validation step, persist the FINAL state (within the
+    early-stopping patience of the best) and flush again."""
+    if manager is None:
+        return
+    latest = manager.latest_step()
+    if stopper.best_step and (latest is None or latest < stopper.best_step):
+        logger.warning(
+            "async checkpoint starvation: newest durable checkpoint (step "
+            "%s) predates the best validation (step %d); persisting the "
+            "final state (step %d)", latest, stopper.best_step, int(state.step),
+        )
+        manager.save(
+            int(state.step), state,
+            metrics={"best_val_at_stop": stopper.best},
+            extra={"epoch": epoch, "post_starvation_final": True},
+            force=True,
+        )
+        manager.flush()
+
+
+def warn_dropped_ids(host: dict, *, epoch: int, step: int) -> None:
+    """Surface an all-to-all capacity overflow (``dropped_ids`` > 0, a
+    metric of the sharded path) as a WARNING: those rows read zeros and
+    their gradients are lost."""
+    dropped = host.get("dropped_ids", 0.0)
+    if dropped and dropped > 0:
+        logger.warning(
+            "epoch %d step %d: a2a capacity overflow — %d embedding ids "
+            "dropped (read zeros / gradients lost); raise "
+            "mesh.a2a_capacity_factor (0 disables capacity limiting)",
+            epoch, step, int(dropped),
+        )
+
+
+@dataclass
+class EarlyStopping:
+    """Patience-based early stopping on a maximized metric."""
+
+    patience: int
+    best: float = -np.inf
+    best_step: int = 0
+    bad_rounds: int = 0
+
+    def update(self, value: float, step: int) -> bool:
+        """Record a validation metric; returns True if training should stop."""
+        if value > self.best:
+            self.best = value
+            self.best_step = step
+            self.bad_rounds = 0
+            return False
+        self.bad_rounds += 1
+        # Stop after exactly `patience` consecutive non-improving validations.
+        return self.bad_rounds >= self.patience
+
+
+@dataclass
+class TrainResult:
+    state: TrainState
+    history: list[dict[str, float]] = field(default_factory=list)
+    best_metric: float = -np.inf
+    best_step: int = 0
+    # End-to-end: examples / total wall time in fit(), validation and
+    # checkpoint saves included.
+    examples_per_sec: float = 0.0
+    # Training phase only: examples / time inside the epoch loops.
+    train_examples_per_sec: float = 0.0
+    # Steady state: the fastest single epoch.
+    steady_examples_per_sec: float = 0.0
+
+    def finalize_throughput(self, examples_seen: int, train_time: float, total_time: float) -> None:
+        self.examples_per_sec = examples_seen / max(total_time, 1e-9)
+        self.train_examples_per_sec = examples_seen / max(train_time, 1e-9)
+        self.steady_examples_per_sec = max(
+            (r["examples_per_sec"] for r in self.history if "examples_per_sec" in r),
+            default=self.train_examples_per_sec,
+        )
+
+
+def _host_metrics(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
+    """One device-to-host read of a metrics dict."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].float() for k in keys]).tolist()
+    return dict(zip(keys, values))
+
+
+class Trainer:
+    """Epoch-driving host loop around the train step, on one device
+    (``cuda`` unless the caller passes ``device="cpu"``).
+
+    ``evaluate_fn(params) -> dict`` supplies validation metrics (typically
+    from ``evaluation.Evaluator``); ``writers`` receive per-step and
+    per-epoch metric dicts (``utils/tracking.py``).
+    """
+
+    def __init__(
+        self,
+        config: Config,
+        *,
+        log_q: np.ndarray | None = None,
+        evaluate_fn: Callable[[Any], dict[str, float]] | None = None,
+        writers: list[Any] | None = None,
+        checkpoint_manager: Any | None = None,
+        shutdown: Any | None = None,
+        item_tokens: np.ndarray | None = None,
+        mesh: Any | None = None,
+        num_items: int | None = None,
+        text_embedding_init: np.ndarray | None = None,
+        device: str | torch.device | None = None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
+            )
+        if item_tokens is not None or text_embedding_init is not None:
+            raise NotImplementedError(
+                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
+            )
+        self.device = resolve_device(device)
+        self.config = config
+        self.optimizer = make_optimizer(config.training)
+        self.train_step = make_train_step(
+            config, self.optimizer, log_q, num_items=num_items, device=self.device
+        )
+        self.evaluate_fn = evaluate_fn
+        self.writers = writers or []
+        self.checkpoint_manager = checkpoint_manager
+        # Preemption-aware stop flag provider (utils.profiling.GracefulShutdown).
+        self.shutdown = shutdown
+
+    def init_state(self, num_users: int, num_items: int) -> TrainState:
+        from twotower_tpu_torch.training.state import init_train_state
+
+        return init_train_state(
+            self.config, self.optimizer, num_users, num_items, device=self.device
+        )
+
+    def _write(self, payload: dict[str, float], step: int) -> None:
+        for w in self.writers:
+            w.write(payload, step=step)
+
+    def fit(self, state: TrainState, pipeline, *, start_epoch: int = 0) -> TrainResult:
+        from twotower_tpu_torch.data.pipeline import DevicePrefetcher, torch_put
+        from twotower_tpu_torch.models.two_tower import dead_row
+        from twotower_tpu_torch.training.host_dedup import augment_epoch, wants_host_dedup
+        from twotower_tpu_torch.utils.profiling import StepTimer
+
+        cfg = self.config.training
+        rng = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        stopper = EarlyStopping(patience=cfg.patience)
+        result = TrainResult(state=state)
+        examples_seen = 0
+        t_start = time.perf_counter()
+        pending: dict[str, torch.Tensor] | None = None
+        timer = StepTimer()
+        to_device = torch_put(self.device)
+
+        # Host-side dedup precompute (training/host_dedup.py) on the
+        # prefetch thread: the step skips its sort + segment dedup.
+        dedup_deads: tuple[int, int | None] | None = None
+        if wants_host_dedup(self.config, None):
+            item_dead = (
+                dead_row(state.params["item_embedding"])
+                if self.config.retrieval.candidate_sampling == "in_batch"
+                else None
+            )
+            dedup_deads = (dead_row(state.params["user_embedding"]), item_dead)
+
+        def epoch_batches(epoch: int):
+            it = pipeline.epoch(epoch)
+            if dedup_deads is not None:
+                it = augment_epoch(it, user_dead=dedup_deads[0], item_dead=dedup_deads[1])
+            return it
+
+        # Segmented dispatch (training.segment_steps > 1): S stacked batches
+        # a prefetch item, stepped in one runner call.
+        seg = cfg.segment_steps
+        segment_run = make_segment_runner(self.train_step) if seg > 1 else None
+
+        train_time = 0.0
+        for epoch in range(start_epoch, cfg.epochs):
+            t_epoch = time.perf_counter()
+            steps = 0
+            batches = epoch_batches(epoch)
+            source = DevicePrefetcher(
+                pack_segments(batches, seg) if seg > 1 else batches, to_device
+            )
+            for device_batch in source:
+                if segment_run is not None:
+                    n_steps = int(device_batch["user_idx"].shape[0])
+                    rows = int(device_batch["user_idx"].shape[1])
+                    state, metrics = segment_run(state, device_batch, rng)
+                else:
+                    n_steps, rows = 1, int(device_batch["user_idx"].shape[0])
+                    state, metrics = self.train_step(state, device_batch, rng)
+                timer.tick()
+                prev_steps = steps
+                steps += n_steps
+                examples_seen += n_steps * rows
+                # Read the *previous* dispatch's metrics: the device runs this
+                # one meanwhile. (Crossing test, not modulo: segments advance
+                # by S steps.) Skipped while an async checkpoint copies its
+                # snapshot; the epoch-end record reads unconditionally.
+                if pending is not None and (
+                    prev_steps // cfg.log_every_steps != steps // cfg.log_every_steps
+                ) and not getattr(self.checkpoint_manager, "is_busy", False):
+                    host = _host_metrics(pending)
+                    self._write({f"train/{k}": v for k, v in host.items()}, int(state.step))
+                    warn_dropped_ids(host, epoch=epoch, step=int(state.step))
+                    logger.info(
+                        "epoch %d step %d loss %.4f acc %.4f",
+                        epoch, int(state.step), host.get("loss", np.nan),
+                        host.get("accuracy", np.nan),
+                    )
+                pending = metrics
+            if pending is not None:
+                # Read before the clock stops: the epoch's time then covers
+                # its device work, which runs behind the host's dispatch.
+                last = _host_metrics(pending)
+            epoch_time = time.perf_counter() - t_epoch
+            train_time += epoch_time
+            eps = steps * cfg.batch_size / max(epoch_time, 1e-9)
+            record: dict[str, float] = {"epoch": float(epoch), "examples_per_sec": eps}
+            timing = timer.summary()
+            if seg > 1:  # ticks are per segment, not per step: say so
+                timing = {k.replace("step_time", "segment_time"): v for k, v in timing.items()}
+            record.update(timing)
+            if pending is not None:
+                record.update(last)
+                warn_dropped_ids(record, epoch=epoch, step=int(state.step))
+
+            if self.evaluate_fn is not None and (epoch + 1) % cfg.validation_freq == 0:
+                val = self.evaluate_fn(state.params)
+                record.update({f"val/{k}": v for k, v in val.items()})
+                metric = val.get(cfg.early_stopping_metric)
+                if metric is None:
+                    raise KeyError(
+                        f"early_stopping_metric {cfg.early_stopping_metric!r} "
+                        f"not in validation metrics {sorted(val)}"
+                    )
+                logger.info(
+                    "epoch %d done in %.1fs (%.0f ex/s) %s=%.4f",
+                    epoch, epoch_time, eps, cfg.early_stopping_metric, metric,
+                )
+                improved = metric > stopper.best
+                should_stop = stopper.update(metric, int(state.step))
+                if improved and self.checkpoint_manager is not None:
+                    self.checkpoint_manager.save(
+                        int(state.step),
+                        state,
+                        metrics={cfg.early_stopping_metric: metric},
+                        extra={"epoch": epoch + 1},
+                    )
+                result.history.append(record)
+                self._write(record, int(state.step))
+                if should_stop:
+                    logger.info(
+                        "early stopping at epoch %d (best %s=%.4f @ step %d)",
+                        epoch, cfg.early_stopping_metric, stopper.best, stopper.best_step,
+                    )
+                    break
+            else:
+                logger.info("epoch %d done in %.1fs (%.0f ex/s)", epoch, epoch_time, eps)
+                result.history.append(record)
+                self._write(record, int(state.step))
+
+            if self.shutdown is not None and self.shutdown.should_stop:
+                # Preemption: persist progress before leaving the loop.
+                # flush() then force=True: a plain save() could be busy- or
+                # interval-skipped, losing the {epoch, preempted} metadata.
+                if self.checkpoint_manager is not None:
+                    self.checkpoint_manager.flush()
+                    self.checkpoint_manager.save(
+                        int(state.step), state,
+                        extra={"epoch": epoch + 1, "preempted": True},
+                        force=True,
+                    )
+                logger.warning("graceful shutdown after epoch %d", epoch)
+                break
+
+        if self.checkpoint_manager is not None:
+            # Drain async saves: the best state is durable before fit returns
+            # (counted in the end-to-end time, outside the train phase).
+            self.checkpoint_manager.flush()
+            ensure_final_persisted(
+                self.checkpoint_manager, state, stopper,
+                epoch=start_epoch + len(result.history),
+            )
+        total_time = time.perf_counter() - t_start
+        result.state = state
+        result.best_metric = stopper.best
+        result.best_step = stopper.best_step
+        result.finalize_throughput(examples_seen, train_time, total_time)
+        return result

@@ -145,7 +145,8 @@ def init_train_state(
     device: str | torch.device | None = None,
 ) -> TrainState:
     """Fresh seeded state on ``device`` (``cuda`` unless the caller asks for
-    the CPU). Single device only."""
+    the CPU). Single device only. The parameters are drawn on the CPU and
+    moved, so one seed gives the same initial model on every device."""
     from twotower_tpu_torch.models import two_tower
 
     if mesh is not None:
@@ -153,9 +154,9 @@ def init_train_state(
             "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
         )
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(config.training.seed)
+    gen = torch.Generator().manual_seed(config.training.seed)
     params = two_tower.init_params(gen, config.model, num_users, num_items)
-    return TrainState.for_config(params, optimizer, config)
+    return TrainState.for_config(tree_map(lambda t: t.to(dev), params), optimizer, config)
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:

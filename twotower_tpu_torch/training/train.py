@@ -1,0 +1,323 @@
+"""``train-model`` for the PyTorch port:
+``python -m twotower_tpu_torch.training.train``.
+
+Counterpart of ``twotower_tpu/training/train.py`` on the in-memory data path
+(``--synthetic`` or ``--data``): config -> data -> preprocess (k-core,
+vocab, split) -> Trainer with full-corpus validation, early stopping and
+checkpoints -> final artifacts (``config.json``, ``vocab/``, a checkpoint,
+``train_summary.json`` with the test metrics), the same files the JAX CLI
+writes. Runs on ``--device cuda`` (the default) or ``--device cpu``.
+
+The flags of the JAX CLI that belong to slices not ported yet are kept and
+exit with a message naming the ROADMAP.md item (``UNPORTED``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from twotower_tpu_torch.config import Config, load_config, parse_cli_overrides
+from twotower_tpu_torch.logging_utils import get_logger, setup_logging
+
+logger = get_logger(__name__)
+
+_PREPARED = "ROADMAP.md, Queue 1: the prepared-dir and streaming slice"
+# flag (argparse dest) -> the ROADMAP.md item that ports it.
+UNPORTED = {
+    "prepared_dir": _PREPARED,
+    "stream_batches": _PREPARED,
+    "device_loop": _PREPARED,
+    "mesh": "ROADMAP.md, Queue 1: multi-GPU",
+    "coordinator": "ROADMAP.md, Queue 1: multi-GPU",
+    "synthetic_text": "ROADMAP.md, Queue 1: text towers",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="train-model",
+        description="Train the two-tower retrieval model (PyTorch port)",
+    )
+    p.add_argument("--config", type=str, default=None, help="YAML config path")
+    p.add_argument(
+        "--override", nargs="*", default=[], metavar="KEY=VALUE",
+        help="dotted config overrides, e.g. training.batch_size=4096",
+    )
+    p.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="device to train on (default cuda; there is no fallback to the CPU)",
+    )
+    src = p.add_mutually_exclusive_group()
+    src.add_argument(
+        "--data", type=str, default=None,
+        help="raw/processed interactions parquet (re-runs preprocessing)",
+    )
+    src.add_argument(
+        "--prepared-dir", type=str, default=None,
+        help=f"prepare-data artifact directory (not ported yet: {_PREPARED})",
+    )
+    src.add_argument(
+        "--synthetic", action="store_true",
+        help="train on seeded synthetic interactions (no network needed)",
+    )
+    p.add_argument(
+        "--stream-batches", action="store_true",
+        help=f"stream train batches from --prepared-dir (not ported yet: {_PREPARED})",
+    )
+    p.add_argument(
+        "--exec", choices=["auto", "host", "device-loop", "stream"],
+        default="auto", dest="exec_rung",
+        help="execution rung: 'auto' and 'host' run the host loop; "
+        f"'device-loop' and 'stream' are not ported yet ({_PREPARED})",
+    )
+    p.add_argument("--synthetic-users", type=int, default=2000)
+    p.add_argument("--synthetic-items", type=int, default=1000)
+    p.add_argument("--synthetic-interactions", type=int, default=100_000)
+    p.add_argument(
+        "--synthetic-text", action="store_true",
+        help="generate text/title columns too (text tower not ported yet)",
+    )
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
+    p.add_argument(
+        "--writers", nargs="*", default=["stdout", "jsonl"],
+        choices=["stdout", "jsonl", "tensorboard", "mlflow", "wandb"],
+    )
+    p.add_argument("--split", choices=["temporal", "random"], default="temporal")
+    p.add_argument("--no-eval", action="store_true", help="skip validation/early stop")
+    p.add_argument(
+        "--val-rows", type=int, default=None,
+        help="cap per-epoch validation to a strided subsample of this many "
+        "held-out rows; early stopping then tracks the subsample, while the "
+        "final test metrics and evaluate-model always score the FULL split",
+    )
+    p.add_argument(
+        "--profile-dir", type=str, default=None,
+        help="write a torch.profiler trace (trace.json) of the training run",
+    )
+    p.add_argument(
+        "--device-loop", action="store_true",
+        help=f"device-resident epochs (not ported yet: {_PREPARED})",
+    )
+    p.add_argument("--mesh", action="store_true",
+                   help="train over all visible devices (not ported yet)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-host coordinator address (not ported yet)")
+    return p
+
+
+def unported_flags(args) -> list[str]:
+    """Messages for the flags of slices not ported yet that ``args`` uses."""
+    out = [
+        f"--{dest.replace('_', '-')} is not ported yet ({where})"
+        for dest, where in UNPORTED.items()
+        if getattr(args, dest, None)
+    ]
+    if getattr(args, "exec_rung", "auto") not in ("auto", "host"):
+        out.append(f"--exec {args.exec_rung} is not ported yet ({_PREPARED})")
+    return out
+
+
+def strided_subsample(n: int, cap: int) -> np.ndarray:
+    """Indices of an evenly-spaced size-<=cap subsample of ``range(n)``:
+    deterministic and uniform over the index range, so a temporally sorted
+    validation split stays temporally representative."""
+    if cap >= n:
+        return np.arange(n)
+    return np.linspace(0, n - 1, num=cap, dtype=np.int64)
+
+
+def load_interactions(args):
+    from twotower_tpu_torch.data import from_dataframe, generate_interactions
+
+    if args.synthetic or args.data is None:
+        if args.data is None and not args.synthetic:
+            logger.info("no --data given; defaulting to --synthetic")
+        return generate_interactions(
+            num_users=args.synthetic_users,
+            num_items=args.synthetic_items,
+            num_interactions=args.synthetic_interactions,
+            device=getattr(args, "device", None),
+        )
+    import pandas as pd
+
+    return from_dataframe(pd.read_parquet(args.data))
+
+
+class _EncodedColumns:
+    """Minimal encoded-columns view (what BatchPipeline reads)."""
+
+    def __init__(self, user_idx, item_idx):
+        self.user_idx = user_idx
+        self.item_idx = item_idx
+
+    def __len__(self) -> int:
+        return len(self.user_idx)
+
+
+def run(args, config: Config) -> dict:
+    from twotower_tpu_torch.data import Preprocessor
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+    from twotower_tpu_torch.utils.tracking import build_writers
+
+    data = load_interactions(args)
+    pp = Preprocessor(config.preprocessing)
+    data = pp.process(data)
+    splits = pp.split_data(data, method=args.split)
+    num_users, num_items = len(pp.vocab.users), len(pp.vocab.items)
+    logger.info(
+        "data: %d train / %d val / %d test; %d users, %d items",
+        len(splits.train), len(splits.val), len(splits.test), num_users, num_items,
+    )
+    ckpt_dir = Path(args.checkpoint_dir or config.training.checkpoint_dir)
+    manager = CheckpointManager(
+        ckpt_dir, keep=config.training.keep_checkpoints,
+        async_save=config.training.async_checkpoint,
+        min_interval_s=config.training.checkpoint_min_interval_s,
+    )
+    writers = build_writers(args.writers, jsonl_path=ckpt_dir / "metrics.jsonl")
+    return _fit_and_summarize(
+        args,
+        config,
+        num_users=num_users,
+        num_items=num_items,
+        log_q=np.log(pp.vocab.items.frequencies + 1e-12),
+        ckpt_dir=ckpt_dir,
+        manager=manager,
+        writers=writers,
+        save_vocab=lambda d: pp.vocab.save(d / "vocab"),
+        train_cols=_EncodedColumns(splits.train.user_idx, splits.train.item_idx),
+        val_arrays=(splits.val.user_idx, splits.val.item_idx),
+        test_arrays=(splits.test.user_idx, splits.test.item_idx),
+    )
+
+
+def _fit_and_summarize(
+    args,
+    config: Config,
+    *,
+    num_users: int,
+    num_items: int,
+    log_q,
+    ckpt_dir: Path,
+    manager,
+    writers,
+    save_vocab,
+    train_cols,
+    val_arrays,
+    test_arrays,
+) -> dict:
+    """Config snapshot -> Trainer -> fit -> artifacts + summary."""
+    from twotower_tpu_torch.data import BatchPipeline
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.training.loop import Trainer
+    from twotower_tpu_torch.utils.profiling import GracefulShutdown, trace
+
+    # The RESOLVED config beside the checkpoint: evaluate-model rebuilds the
+    # trained shape from it without the overrides (load_config_for_checkpoint).
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    (ckpt_dir / "config.json").write_text(config.to_json())
+
+    evaluator = Evaluator(config, num_items, device=args.device)
+    val_u, val_i = val_arrays
+    cap = getattr(args, "val_rows", None)
+    if cap and cap < len(val_u):
+        sel = strided_subsample(len(val_u), cap)
+        logger.info(
+            "validation capped: %d of %d held-out rows (stride %d)",
+            len(sel), len(val_u), sel[1] - sel[0] if len(sel) > 1 else 1,
+        )
+        val_u, val_i = val_u[sel], val_i[sel]
+    evaluate_fn = (
+        None if args.no_eval or len(val_u) == 0 else evaluator.make_evaluate_fn(val_u, val_i)
+    )
+    shutdown = GracefulShutdown().install()
+    try:
+        trainer = Trainer(
+            config,
+            log_q=log_q,
+            evaluate_fn=evaluate_fn,
+            writers=writers,
+            checkpoint_manager=manager,
+            shutdown=shutdown,
+            num_items=num_items,
+            device=args.device,
+        )
+        train_input = BatchPipeline(
+            train_cols, config.training.batch_size, seed=config.training.seed
+        )
+        state = trainer.init_state(num_users, num_items)
+        start_epoch = 0
+        if args.resume and manager.latest_step() is not None:
+            state, meta = manager.restore(state)
+            start_epoch = int(meta.get("epoch", 0))
+            logger.info("resumed from step %d (epoch %d)", int(state.step), start_epoch)
+        with trace(args.profile_dir):
+            result = trainer.fit(state, train_input, start_epoch=start_epoch)
+    finally:
+        shutdown.uninstall()
+
+    # Final artifacts: vocab manifest + final checkpoint + test metrics.
+    # With validation, improving epochs already saved the BEST checkpoint
+    # and the final state is persisted only when nothing was saved yet;
+    # without validation nothing saved in the loop, so the final state is
+    # always saved ("epoch" is where --resume restarts).
+    save_vocab(ckpt_dir)
+    if evaluate_fn is None or manager.latest_step() is None:
+        manager.save(
+            int(result.state.step),
+            result.state,
+            extra={"epoch": start_epoch + len(result.history)},
+        )
+    manager.flush()  # async managers: durability before the CLI returns
+    test_metrics = (
+        evaluator.evaluate(result.state.params, test_arrays[0], test_arrays[1])
+        if len(test_arrays[0])
+        else {}
+    )
+    for w in writers:
+        w.close()
+
+    summary = {
+        # None (JSON null) when no validation ran: json.dumps would
+        # otherwise emit the non-standard ``-Infinity`` literal.
+        "best_val_metric": result.best_metric if np.isfinite(result.best_metric) else None,
+        "best_step": result.best_step,
+        "examples_per_sec": result.examples_per_sec,
+        "train_examples_per_sec": result.train_examples_per_sec,
+        "steady_examples_per_sec": result.steady_examples_per_sec,
+        "epochs_run": len(result.history),
+        "test": test_metrics,
+        "checkpoint_dir": str(ckpt_dir),
+        "num_users": num_users,
+        "num_items": num_items,
+        "execution_rung": "host",
+        "device": str(trainer.device),
+    }
+    (ckpt_dir / "train_summary.json").write_text(json.dumps(summary, indent=2))
+    return summary
+
+
+def main(argv: list[str] | None = None) -> int:
+    from twotower_tpu_torch.utils.platform import resolve_device
+
+    setup_logging()
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    unported = unported_flags(args)
+    if unported:
+        parser.error("; ".join(unported))
+    resolve_device(args.device)  # no GPU: raise before any work
+    config = load_config(args.config, parse_cli_overrides(args.override))
+    summary = run(args, config)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
