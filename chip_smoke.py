@@ -55,7 +55,34 @@
    corpus (median of 10 batches, CUDA events) beside its bound (the larger
    of the corpus bytes at 3.35 TB/s and 2*B*N*D float32 FMA at 67 TFLOP/s)
    and one float32 torch.matmul of the same shape.
-8. Times: per kernel, at the main path's shape, the device time of one
+8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
+   through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
+   no aiohttp). Launch counts set to 0 before and read after: serving runs
+   none of the ported kernels. (1) Card against CPU, small (embedding 16,
+   towers [32,16], float32 compute, 200 users x 3,000 items) in each corpus
+   variant (float32 exact, bfloat16, int8, int8_rowscale): corpora within
+   one rounding step; then on one corpus, all four index methods and 12
+   coalesced requests over the three routes (exclusions, history queries):
+   scores rtol 1e-5 (1e-6 absolute for the responses' 6 decimals), ids
+   equal outside exactly tied scores; the search at its blocked branch the
+   same way, and int8 raw integer scores equal (torch._int_mm with padded
+   query rows and a ragged corpus tail). (2) The trained model: phase 7's
+   checkpoint through RetrievalIndex.from_checkpoint: tpu_mips_exact equal
+   to the Evaluator's topk_mips_twopass (ids, and scores bit for bit) for
+   4096 test users at k=100; recall@100 of bfloat16, int8 and int8_rowscale
+   against it (bfloat16 at least 0.95). (3) Full size: the default model at
+   random weights (seed 42, init_params on the card) over 1M users x 10M
+   items; per variant the build time, the device ms of one search at
+   B=1, 64, 256, k=100 (median of 20, CUDA events) beside its bound (the
+   larger of the valid corpus bytes at 3.35 TB/s and 2*B*N*D at the corpus
+   dtype's dense peak: float32 67, bf16 989, int8 1979 T/s) and recall@100
+   against float32 exact for 1,024 users; then the bfloat16 service (window
+   2 ms): warmup, 2,000 /recommend at concurrency 1 and at 32 (p50/p99 host
+   latency, QPS, device calls), and one blue-green reload with pre_swap
+   warmup. torch.profiler: device time by kernel of the bfloat16 search at
+   B=1 and B=256, and of 256 requests at concurrency 32 with the device's
+   busy share. Prints one {"serving": ...} JSON line.
+9. Times: per kernel, at the main path's shape, the device time of one
    call, beside its bound, its plain version and a library yardstick (one
    torch.matmul(u, v.T) at the same shape, which the port never calls).
    "ms", "plain_ms" and "library_ms" are the median of 20 calls, each
@@ -70,6 +97,8 @@
    float32 FMA at 67 TFLOP/s, or three TF32 tensor-core passes at 495
    TFLOP/s (3x the flops);
    "bound_route" names the one taken and "share_of_bound" is bound / ms.
+   Each row also carries its launches in phase 7's train-model run and in
+   phase 8's serving (0).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -79,6 +108,7 @@ of the repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -599,9 +629,28 @@ def eval_batch_times(ckpt: Path, card: str):
         f"{matmul_ms:.4f} ({card})")
 
 
-def run_slice(card: str) -> dict[str, int]:
+@contextlib.contextmanager
+def evaluated_users(into: list):
+    """Records the user rows of every ``Evaluator.evaluate`` call inside."""
+    from twotower_tpu_torch.evaluation import Evaluator
+
+    orig = Evaluator.evaluate
+
+    def spy(self, params, user_idx, item_idx):
+        into.append(np.asarray(user_idx))
+        return orig(self, params, user_idx, item_idx)
+
+    Evaluator.evaluate = spy
+    try:
+        yield
+    finally:
+        Evaluator.evaluate = orig
+
+
+def run_slice(card: str):
     """train-model then evaluate-model at full width; returns the kernels'
-    launch counts over the train-model run."""
+    launch counts over the train-model run, the first EVAL_B test rows'
+    users of evaluate-model, and the best step."""
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.train import main as train_main
@@ -630,7 +679,9 @@ def run_slice(card: str) -> dict[str, int]:
     if not (ckpt / f"step_{best:010d}" / "meta.json").exists():
         raise RuntimeError(f"no checkpoint with meta.json at step {best}")
     t1 = time.perf_counter()
-    ev = run_cli(eval_main, args + SLICE_DATA + ["--subset", "test"])
+    seen = []
+    with evaluated_users(seen):
+        ev = run_cli(eval_main, args + SLICE_DATA + ["--subset", "test"])
     t_eval = time.perf_counter() - t1
     if ev["checkpoint_step"] != best:
         raise RuntimeError(f"evaluate-model restored step {ev['checkpoint_step']}, best {best}")
@@ -657,7 +708,371 @@ def run_slice(card: str) -> dict[str, int]:
     eval_batch_times(ckpt, card)
     return {"fused_loss_fwd": launches["fused_fwd"],
             "fused_loss_bwd_du": launches["fused_bwd_du"],
-            "fused_loss_bwd_dv": launches["fused_bwd_dv"]}
+            "fused_loss_bwd_dv": launches["fused_bwd_dv"]}, seen[0][:EVAL_B], best
+
+
+# Serving: (label, serving.index_type, serving.corpus_dtype) of the four
+# resident corpora; the first is the float32 exact reference of the others.
+SERVE_VARIANTS = [
+    ("float32_exact", "tpu_mips_exact", "float32"),
+    ("bfloat16", "tpu_mips", "bfloat16"),
+    ("int8", "tpu_mips", "int8"),
+    ("int8_rowscale", "tpu_mips", "int8_rowscale"),
+]
+SERVE_USERS, SERVE_ITEMS = 1_000_000, 10_000_000  # BASELINE config 5's catalogue
+SERVE_BATCHES, SERVE_K = (1, 64, 256), 100
+SERVE_REQUESTS, SERVE_CONCURRENCY = 2000, (1, 32)
+SMALL_SERVE = {"model.embedding_dim": 16, "model.user_tower_dims": [32, 16],
+               "model.item_tower_dims": [32, 16], "model.compute_dtype": "float32"}
+# H100 SXM dense peaks (NVIDIA data sheet, 700 W) by the resident corpus's
+# dtype: a float32 corpus is multiplied with TF32 off, outside the tensor cores.
+PEAK_BY_DTYPE = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: 989e12, torch.int8: 1979e12}
+
+
+def serving_config(index_type: str, corpus_dtype: str, base):
+    return base.with_overrides({"serving.index_type": index_type,
+                                "serving.corpus_dtype": corpus_dtype})
+
+
+class IdVocab:
+    """Stand-in vocab for a model without a catalogue (random weights):
+    each id is its index as a string."""
+
+    class Ids:
+        def __init__(self, n: int):
+            self.n = n
+
+        def __len__(self) -> int:
+            return self.n
+
+        def decode(self, idx):
+            return np.asarray(idx).astype(str)
+
+        def encode(self, raw, missing=-1):
+            return np.array([int(r) if str(r).isdigit() and int(r) < self.n else missing
+                             for r in raw], np.int32)
+
+    def __init__(self, num_users: int, num_items: int):
+        self.users, self.items = self.Ids(num_users), self.Ids(num_items)
+
+
+def same_topk(ours, ref, what: str, atol: float = 0.0) -> int:
+    """Scores within rtol 1e-5 (and ``atol``); ids equal outside exactly tied
+    scores: where the ids differ, ours holds the reference's score of that
+    rank in the reference's list, or ties its last score. Returns the number
+    of tied ranks whose ids differ."""
+    (v, i), (rv, ri) = (np.asarray(ours[0]), np.asarray(ours[1])), (np.asarray(ref[0]),
+                                                                    np.asarray(ref[1]))
+    np.testing.assert_allclose(v, rv, rtol=1e-5, atol=atol, err_msg=what)
+    flips = 0
+    for r in range(len(i)):
+        for j in np.nonzero(i[r] != ri[r])[0]:
+            tied = rv[r] == rv[r, j]
+            if not (i[r, j] in ri[r][tied] or (tied[-1] and i[r, j] not in ri[r])):
+                raise RuntimeError(f"{what}: row {r} rank {j}: id {i[r, j]} against "
+                                   f"{ri[r, j]} outside a tie")
+            flips += 1
+    return flips
+
+
+def run_routes(routes, payloads):
+    """Each (route, payload) through the coalesced handlers, all at once."""
+    import asyncio
+
+    async def go():
+        return await asyncio.gather(*(getattr(routes, name)(p) for name, p in payloads))
+
+    return asyncio.run(go())
+
+
+def response_rows(body):
+    """(scores, ids) of a response; IdVocab's item names are the ids."""
+    rows = body["results"]
+    return (np.array([r["scores"] for r in rows]),
+            np.array([[int(x) for x in r["items"]] for r in rows]))
+
+
+def check_serving_card_vs_cpu():
+    """Serving part 1: a tiny model (embedding 16, towers [32,16], float32
+    compute; 200 users x 3,000 items) served on the card and on the CPU in
+    each corpus variant, through RecommendService and CoalescedRoutes'
+    MicroBatchers under asyncio (no HTTP), all three routes with exclusions
+    and history queries; and the search functions at the blocked branch."""
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops import topk
+    from twotower_tpu_torch.serving import RetrievalIndex
+    from twotower_tpu_torch.serving.api import CoalescedRoutes, RecommendService
+    from twotower_tpu_torch.training.state import tree_map
+
+    nu, ni = 200, 3000
+    base = Config().with_overrides(SMALL_SERVE)
+    params = two_tower.init_params(torch.Generator().manual_seed(8), base.model, nu, ni)
+    card_params = tree_map(lambda t: t.cuda(), params)
+    for label, itype, dtype in SERVE_VARIANTS:
+        cfg = serving_config(itype, dtype, base)
+        cpu = RetrievalIndex(cfg, params, nu, ni, device="cpu")
+        card = RetrievalIndex(cfg, card_params, nu, ni, device="cuda")
+        a, b = card.corpus.float().cpu(), cpu.corpus.float()
+        if card.quantized:  # one float32 ulp can move a value across a rounding step
+            steps = int((a - b).abs().max())
+            if steps > 1:
+                raise RuntimeError(f"{label}: card and CPU int8 corpora {steps} steps apart")
+            torch.testing.assert_close(card.corpus_scale.cpu(), cpu.corpus_scale, rtol=1e-5,
+                                       atol=0)
+        else:  # bf16: a float32 ulp can move a value one bf16 step (<= 2^-7 relative)
+            torch.testing.assert_close(a, b, rtol=2.0**-7 if dtype == "bfloat16" else 1e-5,
+                                       atol=1e-6)
+        # One corpus for both searches (the card's), so what follows holds
+        # the searches and the service, not the encode, card against CPU.
+        cpu.corpus = card.corpus.cpu()
+        cpu.corpus_scale = None if card.corpus_scale is None else card.corpus_scale.cpu()
+        users = np.arange(0, 64, dtype=np.int32)
+        hist = np.array([[1, 5, 9, -1], [40, -1, -1, -1], [7, 8, 2999, 1234]])
+        emb = np.random.default_rng(9).normal(size=(40, 16)).astype(np.float32)
+        flips = sum(same_topk(getattr(card, m)(x, 10), getattr(cpu, m)(x, 10), f"{label} {m}")
+                    for m, x in (("recommend", users), ("similar_items", users[:20]),
+                                 ("recommend_by_history", hist),
+                                 ("recommend_by_embedding", emb)))
+        excl = cpu.recommend(users[:8], 10)[1][:, :3]  # each user's top 3
+        payloads = (
+            [("recommend", {"user_idx": [int(u)], "k": 10, "exclude_idx": excl[u].tolist()})
+             for u in range(8)]
+            + [("recommend", {"user_idx": list(range(8, 40)), "k": 10}),
+               ("similar_items", {"item_idx": [3, 700, 2999], "k": 10}),
+               ("recommend_by_history", {"history_idx": [[1, 5, 9], [40]], "k": 10}),
+               ("recommend_by_history", {"history_idx": [7, 8], "k": 10,
+                                         "exclude_idx": [0, 1, 2]})])
+        bodies = {}
+        for name, index in (("cuda", card), ("cpu", cpu)):
+            service = RecommendService(index, IdVocab(nu, ni), default_k=10)
+            bodies[name] = run_routes(CoalescedRoutes(service, window_ms=2.0), payloads)
+        for (route, payload), got, want in zip(payloads, bodies["cuda"], bodies["cpu"]):
+            # The responses round scores to 6 decimals.
+            flips += same_topk(response_rows(got), response_rows(want), f"{label} {route}",
+                               atol=1e-6)
+        for u in range(8):
+            if set(excl[u]) & set(bodies["cuda"][u]["results"][0]["item_idx"]):
+                raise RuntimeError(f"{label}: excluded ids served to user {u}")
+        log(f"  {label}: card = CPU for recommend, similar_items, recommend_by_history, "
+            f"recommend_by_embedding and {len(payloads)} coalesced requests (scores rtol "
+            f"1e-5, ids equal outside ties; {flips} tied ranks with other ids)")
+    # The search itself at the blocked branch, and int8's raw integer scores.
+    rng = np.random.default_rng(10)
+    q = torch.from_numpy(rng.normal(size=(40, 16)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(2995, 16)).astype(np.float32))
+    corpora = {"float32": (c, None), "bfloat16": (c.bfloat16(), None),
+               "int8": topk.quantize_corpus(c), "int8_rowscale": topk.quantize_corpus(
+                   c, per_row=True)}
+    for label, (corpus, scale) in corpora.items():
+        card_scale = None if scale is None else scale.cuda()
+        kw = dict(query_chunk=16, item_chunk=1024, num_valid=2990)
+        got = topk.topk_mips_approx(q.cuda(), corpus.cuda(), 20, item_scale=card_scale, **kw)
+        want = topk.topk_mips_approx(q, corpus, 20, item_scale=scale, **kw)
+        same_topk([t.cpu() for t in got], want, f"{label} blocked search")
+    qq, _ = topk._quantize_queries(q)
+    cq = corpora["int8"][0]
+    for rows in (slice(0, 2992), slice(2992, 2995)):  # _int_mm's multiple of 8, a ragged tail
+        for qrows in (slice(0, 40), slice(0, 3)):  # more than 16 query rows, and padded
+            got = topk._int8_scores(qq[qrows].cuda(), cq[rows].cuda()).cpu()
+            if not torch.equal(got.long(), topk._int8_scores(qq[qrows], cq[rows]).long()):
+                raise RuntimeError(f"int8 raw scores differ, card against CPU ({rows}, {qrows})")
+    log("  search at the blocked branch (3,000 rows in 1,024-row blocks), card = CPU in "
+        "every variant; int8 raw integer scores equal, card against CPU")
+
+
+def check_serving_trained(ckpt: Path, users: np.ndarray, best_step: int) -> dict:
+    """Serving part 2: the phase-7 checkpoint through
+    RetrievalIndex.from_checkpoint; the exact index against the Evaluator's
+    own search for ``users``, then each reduced-precision corpus's recall."""
+    from twotower_tpu_torch.config import load_config_for_checkpoint
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops.topk import topk_mips_twopass
+    from twotower_tpu_torch.serving import RetrievalIndex
+
+    base = load_config_for_checkpoint(ckpt)
+    exact = RetrievalIndex.from_checkpoint(
+        serving_config("tpu_mips_exact", "float32", base), ckpt, device="cuda")
+    if exact.checkpoint_step != best_step:
+        raise RuntimeError(f"served step {exact.checkpoint_step}, best step {best_step}")
+    ev = Evaluator(base, exact.num_items, batch_size=EVAL_B, device="cuda")
+    with torch.no_grad():
+        emb = two_tower.embed_users(exact.params, torch.as_tensor(users).cuda(), base.model)
+        ref_v, ref_i = topk_mips_twopass(emb, ev._encode_corpus(exact.params), SERVE_K,
+                                         chunk_size=ev.corpus_chunk_size)
+    vals, ids = exact.recommend(users, SERVE_K)
+    if not (np.array_equal(ids, ref_i.cpu().numpy()) and np.array_equal(vals, ref_v.cpu().numpy())):
+        raise RuntimeError("exact serving differs from the evaluation's search")
+    log(f"  {len(users)} test users at k={SERVE_K} over {exact.num_items} items, checkpoint step "
+        f"{exact.checkpoint_step}: tpu_mips_exact = Evaluator's topk_mips_twopass (ids equal, "
+        "scores bit for bit)")
+    params, nu, ni = exact.params, exact.num_users, exact.num_items
+    del exact
+    recalls = {}
+    for label, itype, dtype in SERVE_VARIANTS[1:]:
+        index = RetrievalIndex.from_checkpoint(serving_config(itype, dtype, base), ckpt,
+                                               device="cuda")
+        _, got = index.recommend(users, SERVE_K)
+        recalls[label] = recall_at(got, ids)
+        del index
+    log(f"  recall@{SERVE_K} against exact: {recalls}")
+    if recalls["bfloat16"] < 0.95:
+        raise RuntimeError(f"bfloat16 recall@{SERVE_K} {recalls['bfloat16']} under 0.95")
+    del params
+    torch.cuda.empty_cache()
+    return {"num_items": ni, "num_users": nu, "recall_at_100": recalls}
+
+
+def recall_at(ids: np.ndarray, exact: np.ndarray) -> float:
+    return float(np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(ids, exact)]))
+
+
+def search_bound_ms(index, batch: int) -> tuple[float, str]:
+    """The least time of one search: the larger of its bytes (the valid
+    corpus rows and their scales read once, queries read and [B, k] results
+    written once) at 3.35 TB/s, and its products (2 B N D) at the corpus
+    dtype's dense peak."""
+    n, d = index.num_items, index.corpus.shape[1]
+    nbytes = n * d * index.corpus.element_size() + batch * d * 4 + batch * SERVE_K * 12
+    if index.corpus_scale is not None and index.corpus_scale.dim():
+        nbytes += n * 4
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = 2 * batch * n * d / PEAK_BY_DTYPE[index.corpus.dtype] * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+async def drive_requests(routes, concurrency: int, users: np.ndarray):
+    """``concurrency`` clients, each sending its next /recommend as soon as
+    the last one returns, until ``users`` is used up; per-request host
+    latency and the wall time."""
+    feed, latencies = iter(users.tolist()), []
+
+    async def client():
+        for u in feed:
+            t = time.perf_counter()
+            out = await routes.recommend({"user_idx": [u], "k": SERVE_K})
+            latencies.append(time.perf_counter() - t)
+            if len(out["results"][0]["item_idx"]) != SERVE_K:
+                raise RuntimeError(f"short answer for user {u}")
+
+    import asyncio
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(client() for _ in range(concurrency)))
+    return np.array(latencies) * 1e3, time.perf_counter() - t0
+
+
+def serve_full_size(card: str) -> dict:
+    """Serving part 3: the default model at random weights (seed 42) over
+    1M users x 10M items; each corpus variant's build time, search ms at
+    B = 1, 64, 256 beside its bound, and recall@100 against exact; then the
+    bfloat16 service end to end and one blue-green reload."""
+    import asyncio
+
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.serving import RetrievalIndex
+    from twotower_tpu_torch.serving.api import CoalescedRoutes, RecommendService
+
+    base = Config()
+    t0 = time.perf_counter()
+    params = two_tower.init_params(torch.Generator(device="cuda").manual_seed(42), base.model,
+                                   SERVE_USERS, SERVE_ITEMS)
+    torch.cuda.synchronize()
+    log(f"  init_params on the card: {time.perf_counter() - t0:.3f} s, {SERVE_USERS} users x "
+        f"{SERVE_ITEMS} items, embedding {base.model.embedding_dim}, towers "
+        f"{base.model.user_tower_dims}")
+    rng = np.random.default_rng(43)
+    recall_users = rng.integers(0, SERVE_USERS, 1024)
+    queries = {b: torch.as_tensor(rng.integers(0, SERVE_USERS, b)).cuda() for b in SERVE_BATCHES}
+    results, exact_ids = {}, None
+    for label, itype, dtype in SERVE_VARIANTS:
+        cfg = serving_config(itype, dtype, base)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index = RetrievalIndex(cfg, params, SERVE_USERS, SERVE_ITEMS, device="cuda")
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t,
+               "resident_gb": index.corpus.numel() * index.corpus.element_size() / 1e9}
+        _, ids = index.recommend(recall_users, SERVE_K)
+        exact_ids = ids if exact_ids is None else exact_ids
+        row["recall_at_100"] = recall_at(ids, exact_ids)
+        with torch.no_grad():
+            for b, users in queries.items():
+                emb = two_tower.embed_users(params, users, cfg.model)
+                bound, by = search_bound_ms(index, b)
+                ms = time_ms(lambda: index._search(emb, SERVE_K))
+                row[f"B{b}"] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                                "share_of_bound": bound / ms}
+                if label == "bfloat16" and b in (1, 256):
+                    log(f"  bfloat16 search at B={b}, by kernel:")
+                    profile_device(lambda i: index._search(emb, SERVE_K), 3, "search")
+        results[label] = row
+        log(f"  {label}: build {row['build_s']:.3f} s, {row['resident_gb']:.3f} GB resident, "
+            f"recall@{SERVE_K} {row['recall_at_100']:.4f}; search ms (bound ms, by) "
+            + ", ".join(f"B={b} {row[f'B{b}']['ms']:.4f} ({row[f'B{b}']['bound_ms']:.4f}, "
+                        f"{row[f'B{b}']['bound_by']})" for b in SERVE_BATCHES) + f" ({card})")
+        del index
+        torch.cuda.empty_cache()
+
+    cfg = serving_config("tpu_mips", "bfloat16", base)
+
+    def factory(step=None):
+        return RetrievalIndex(cfg, params, SERVE_USERS, SERVE_ITEMS, device="cuda")
+
+    service = RecommendService(
+        factory(), IdVocab(SERVE_USERS, SERVE_ITEMS), default_k=SERVE_K,
+        max_batch=cfg.serving.max_batch_size, index_factory=factory,
+        max_exclude=cfg.serving.max_exclude, max_history=cfg.serving.max_history)
+    routes = CoalescedRoutes(service, window_ms=cfg.serving.coalesce_window_ms)
+    t = time.perf_counter()
+    shapes = routes.warmup(service.default_k)
+    log(f"  bfloat16 service: warmup of {shapes} (bucket x depth) shapes over the three "
+        f"routes {time.perf_counter() - t:.3f} s")
+    e2e = {}
+    for c in SERVE_CONCURRENCY:
+        before = routes.batchers["recommend"].batches
+        lat, wall = asyncio.run(drive_requests(routes, c, rng.integers(0, SERVE_USERS,
+                                                                         SERVE_REQUESTS)))
+        calls = routes.batchers["recommend"].batches - before
+        e2e[f"c{c}"] = {"p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "qps": SERVE_REQUESTS / wall, "device_calls": calls}
+        log(f"  end to end, concurrency {c}, {SERVE_REQUESTS} /recommend: p50 "
+            f"{e2e[f'c{c}']['p50_ms']:.3f} ms, p99 {e2e[f'c{c}']['p99_ms']:.3f} ms, "
+            f"{e2e[f'c{c}']['qps']:.1f} QPS, {calls} device calls ({card})")
+    log("  end to end, concurrency 32, 256 /recommend, by kernel:")
+    profile_device(lambda i: asyncio.run(drive_requests(
+        routes, 32, rng.integers(0, SERVE_USERS, 256))), 1, "window")
+    old = service.index
+    probe = {"user_idx": [int(u) for u in recall_users[:4]], "k": SERVE_K}
+    want = service.recommend(probe)
+    t = time.perf_counter()
+    info = service.reload(pre_swap=lambda new: routes.warmup(service.configured_k, index=new))
+    routes.pin(service.index)
+    reload_s = time.perf_counter() - t
+    got = service.recommend(probe)
+    if service.index is old or info["generation"] != 1 or [
+            r["item_idx"] for r in got["results"]] != [r["item_idx"] for r in want["results"]]:
+        raise RuntimeError(f"blue-green reload did not swap in an equal model: {info}")
+    log(f"  blue-green reload (build + warmup of every route against the new index + swap): "
+        f"{reload_s:.3f} s; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+        f"GiB ({card})")
+    del old, service, routes, params
+    torch.cuda.empty_cache()
+    return {"variants": results, "end_to_end": e2e, "reload_s": reload_s}
+
+
+def run_serving(card: str, ckpt: Path, test_users: np.ndarray, best_step: int) -> dict:
+    """Serving phase: returns the numbers it printed."""
+    log("  part 1: card against CPU, small")
+    check_serving_card_vs_cpu()
+    log("  part 2: the trained model (phase 7's checkpoint)")
+    trained = check_serving_trained(ckpt, test_users, best_step)
+    log(f"  part 3: full size, {SERVE_USERS} users x {SERVE_ITEMS} items")
+    full = serve_full_size(card)
+    return {"card": card, "trained": trained, **full}
 
 
 def kernel_times(errs, launches, report):
@@ -718,7 +1133,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from twotower_tpu_torch.ops import build
+    from twotower_tpu_torch.ops import build, kernels
 
     log("phase 1: card")
     card = card_line()
@@ -748,12 +1163,22 @@ def main() -> int:
     check_twopass()
 
     log("phase 7: train-model and evaluate-model at full width")
-    slice_launches = run_slice(card)
+    slice_launches, test_users, best_step = run_slice(card)
 
-    log("phase 8: kernel times")
+    log("phase 8: serving (serve-model's index, service and batcher)")
+    kernels.reset_launch_counts()
+    serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
+    serve_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    log(f"  launches of the ported kernels while serving: {serve_launches} (serving runs none)")
+    log(json.dumps({"serving": serving}))
+
+    log("phase 9: kernel times")
     rows = kernel_times(errs, launches, report)
+    names = {"fused_loss_fwd": "fused_fwd", "fused_loss_bwd_du": "fused_bwd_du",
+             "fused_loss_bwd_dv": "fused_bwd_dv"}
     for row in rows:
         row["launches_train_model"] = slice_launches[row["name"]]
+        row["launches_serve_model"] = serve_launches[names[row["name"]]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s")

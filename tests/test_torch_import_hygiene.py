@@ -19,12 +19,16 @@ from twotower_tpu_torch.training import init_train_state, make_optimizer, make_t
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "twotower_tpu"}
+HTTP = {"aiohttp", "fastapi"}
 PORT_FILES = sorted((ROOT / "twotower_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def _imported_roots(path: pathlib.Path) -> set[str]:
+def _imported_roots(path: pathlib.Path, *, module_level: bool = False) -> set[str]:
+    """Root packages ``path`` imports anywhere, or only in its top-level
+    statements (those run at import)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
     roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    for node in tree.body if module_level else ast.walk(tree):
         if isinstance(node, ast.Import):
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
@@ -37,13 +41,21 @@ def test_port_imports_no_jax(path):
     assert not _imported_roots(path) & FORBIDDEN
 
 
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_http_package_at_module_level(path):
+    assert not _imported_roots(path, module_level=True) & HTTP
+
+
 def test_hygiene_check_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "twotower_tpu_torch/ops/kernels.py",
             "twotower_tpu_torch/training/sparse.py",
             "twotower_tpu_torch/data/pipeline.py",
             "twotower_tpu_torch/evaluation/evaluator.py",
-            "twotower_tpu_torch/utils/checkpoint.py"} <= names
+            "twotower_tpu_torch/utils/checkpoint.py",
+            "twotower_tpu_torch/ops/topk.py",
+            "twotower_tpu_torch/serving/index.py",
+            "twotower_tpu_torch/serving/api.py"} <= names
 
 
 def _small():
@@ -86,6 +98,24 @@ def test_trainer_evaluator_and_clis_default_to_cuda_and_raise_without_it(no_cuda
     assert Trainer(cfg, device="cpu").device.type == "cpu"
     assert Evaluator(cfg, 10, device="cpu").device.type == "cpu"
     assert not any(tmp_path.iterdir())  # the CLIs raised before any work
+
+
+def test_serving_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.serving import RetrievalIndex
+    from twotower_tpu_torch.serving.api import build_service
+    from twotower_tpu_torch.serving.api import main as serve_main
+
+    cfg = _small()
+    params = two_tower.init_params(torch.Generator().manual_seed(0), cfg.model, 10, 10)
+    for make in (lambda: RetrievalIndex(cfg, params, 10, 10),
+                 lambda: RetrievalIndex.from_checkpoint(cfg, tmp_path),
+                 lambda: build_service(cfg, str(tmp_path)),
+                 lambda: serve_main(["--checkpoint-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert RetrievalIndex(cfg, params, 10, 10, device="cpu").corpus.device.type == "cpu"
+    assert not any(tmp_path.iterdir())
 
 
 @pytest.fixture()

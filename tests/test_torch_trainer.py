@@ -13,6 +13,7 @@ one rank flip, 1/(rows) absolute."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from test_torch_bridge import jax_state_to_numpy
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -137,6 +138,27 @@ def test_evaluator_matches_jax(both_fits):
         assert abs(ours[key] - ref[key]) <= 1.0 / len(splits.test), key
 
 
+@pytest.mark.parametrize("corpus_dtype", ["float32", "bfloat16"])
+def test_approx_evaluator_matches_jax(both_fits, corpus_dtype):
+    """Validation mode (``eval_exact=false``): the corpus at
+    ``eval_corpus_dtype`` and the serving search, against the JAX
+    Evaluator's ``approx_max_k`` (an exact top-k on the CPU); metrics within
+    one rank flip."""
+    jres, _, _, splits = both_fits
+    over = {"retrieval.eval_exact": False, "retrieval.eval_corpus_dtype": corpus_dtype}
+    cfg, jcfg, pp, _ = _setup(over)
+    ni = len(pp.vocab.items)
+    params = bridge.params_from_numpy(jax.device_get(jres.state.params))
+    ev = Evaluator(cfg, ni, batch_size=100, device="cpu")
+    assert ev._encode_corpus(params).dtype == getattr(torch, corpus_dtype)
+    ours = ev.evaluate(params, splits.test.user_idx, splits.test.item_idx)
+    ref = JaxEvaluator(jcfg, ni, batch_size=100).evaluate(
+        jres.state.params, splits.test.user_idx, splits.test.item_idx)
+    assert ours.keys() == ref.keys()
+    for key in ref:
+        assert abs(ours[key] - ref[key]) <= 1.0 / len(splits.test), key
+
+
 def test_small_corpus_not_padded_to_full_chunk():
     cfg, _, pp, splits = _setup()
     ni = len(pp.vocab.items)
@@ -151,8 +173,6 @@ def test_small_corpus_not_padded_to_full_chunk():
 
 def test_unported_options_raise():
     cfg, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Evaluator(cfg.with_overrides({"retrieval.eval_exact": False}), 10, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

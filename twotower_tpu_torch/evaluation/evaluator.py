@@ -1,10 +1,14 @@
-"""Full-corpus retrieval evaluator, exact mode (PyTorch).
+"""Full-corpus retrieval evaluator (PyTorch).
 
 Counterpart of ``twotower_tpu/evaluation/evaluator.py``: encode the whole
 item corpus through the candidate tower once per evaluation (chunked, on the
-device), then stream user batches through the query tower -> exact MIPS
-top-k (``ops.topk.topk_mips_twopass``) -> metrics. Exact brute-force scoring,
-so metrics are deterministic up to tie order.
+device), then stream user batches through the query tower -> MIPS top-k ->
+metrics. Exact mode (``retrieval.eval_exact``, the default) searches with
+``ops.topk.topk_mips_twopass`` (float32 scores), so metrics are deterministic
+up to tie order. Validation mode (``eval_exact=false``) keeps the corpus at
+``retrieval.eval_corpus_dtype`` (float32 or bfloat16) and searches with the
+serving search ``topk_mips_approx``, an exact top-k over the scores at that
+precision, as the JAX package computes it off the TPU.
 
 The metric sums stay on the device across batches and are read once at the
 end (the counterpart of the JAX evaluator's single fetch after its
@@ -23,7 +27,7 @@ from twotower_tpu_torch.config import Config
 from twotower_tpu_torch.evaluation.metrics import metrics_at_k
 from twotower_tpu_torch.logging_utils import get_logger
 from twotower_tpu_torch.models import two_tower
-from twotower_tpu_torch.ops.topk import exact_scan_chunk, topk_mips_twopass
+from twotower_tpu_torch.ops.topk import exact_scan_chunk, topk_mips_approx, topk_mips_twopass
 from twotower_tpu_torch.utils.platform import resolve_device
 
 logger = get_logger(__name__)
@@ -54,11 +58,6 @@ class Evaluator:
         mesh=None,
         device: str | torch.device | None = None,
     ):
-        if not config.retrieval.eval_exact:
-            raise NotImplementedError(
-                "approximate evaluation (retrieval.eval_exact=false) is not ported "
-                "yet (ROADMAP.md, Queue 1: serving, approximate top-k)"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
@@ -73,6 +72,7 @@ class Evaluator:
         self.ks = tuple(sorted(config.retrieval.top_k_eval))
         self.max_k = min(max(self.ks), num_items)
         self.batch_size = batch_size
+        self.exact = config.retrieval.eval_exact
         # Explicit chunks round down to the two-pass block multiple, as the
         # search itself does; the chunk bounds the [batch, chunk] scores.
         self.corpus_chunk_size = (
@@ -83,12 +83,14 @@ class Evaluator:
         self._ks_used = tuple(k for k in self.ks if k <= self.max_k) or (self.max_k,)
 
     def _encode_corpus(self, params) -> torch.Tensor:
-        """The corpus ``[num_items, D]``, encoded once per evaluation. Not
-        padded: the JAX evaluator pads it to the chunk multiple once so that
-        its search need not pad a copy on every batch; the port's search
-        reads slices of the corpus and never copies it, and padding rows
-        would only add columns to the score product."""
-        return two_tower.embed_item_table(params, self.config.model, self.num_items)
+        """The corpus ``[num_items, D]`` at ``retrieval.eval_corpus_dtype``,
+        encoded once per evaluation. Not padded: the JAX evaluator pads the
+        exact corpus to the chunk multiple once so that its search need not
+        pad a copy on every batch; the port's searches read slices of the
+        corpus and never copy it, and padding rows would only add columns to
+        the score product."""
+        emb = two_tower.embed_item_table(params, self.config.model, self.num_items)
+        return emb.to(getattr(torch, self.config.retrieval.eval_corpus_dtype))
 
     @torch.no_grad()
     def evaluate(
@@ -114,9 +116,12 @@ class Evaluator:
             bu = users[start : start + self.batch_size]
             bi = items[start : start + self.batch_size]
             user_emb = two_tower.embed_users(params, bu, mcfg, train=False)
-            _, topk_idx = topk_mips_twopass(
-                user_emb, corpus, self.max_k, chunk_size=self.corpus_chunk_size
-            )
+            if self.exact:
+                _, topk_idx = topk_mips_twopass(
+                    user_emb, corpus, self.max_k, chunk_size=self.corpus_chunk_size
+                )
+            else:
+                _, topk_idx = topk_mips_approx(user_emb, corpus, self.max_k)
             m = metrics_at_k(topk_idx, bi, self._ks_used)
             # metrics_at_k returns means over the batch's rows; times the row
             # count they are sums.
