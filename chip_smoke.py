@@ -29,7 +29,13 @@
    init_train_state and make_train_step, 5 + 20 steps. Launch counts are
    set to 0 just before and read just after; every kernel must have run.
    Then 5 more steps under torch.profiler: device time by kernel and the
-   device's busy share of the window.
+   device's busy share of the window. Then the same step replayed from a
+   CUDA graph: the device loop's epoch (training/device_loop.py) at the
+   same shape and state over 32 x 4096 random rows on the card, one epoch
+   (2 warm-up steps, the capture, the replays) whose launches must equal
+   its 32 steps, 25 single replays timed by CUDA events (median) and by
+   the wall clock, and 5 replays profiled (each kernel's name must count 5
+   launches), printed beside the eager step's median and device time.
 6. Card against CPU, small: the train-model and evaluate-model CLIs, in
    process through main(argv), at the CLI tests' sizes (200 users, 100
    items, 5000 interactions, embedding 16, towers [32,16], batch 64,
@@ -55,6 +61,19 @@
    corpus (median of 10 batches, CUDA events) beside its bound (the larger
    of the corpus bytes at 3.35 TB/s and 2*B*N*D float32 FMA at 67 TFLOP/s)
    and one float32 torch.matmul of the same shape.
+7b. The device loop. (a) One epoch at a small size (embedding 32, towers
+   [64,32], float32 compute, dropout 0, warmup 5 + cosine 20 steps, batch
+   256, 13 steps) from one state and one permutation: captured and
+   replayed on the card, eager on the card, and on the CPU; metrics rtol
+   1e-4 and state rtol 1e-4 / atol 1e-5 against the captured run, whose
+   launches must equal its steps. (b) Phase 7's run with train-model
+   --exec device-loop, then evaluate-model on its checkpoint, with phase
+   7's checks (launch counts set to 0 just before train-model and read just
+   after must equal its steps); its steady and train examples/s beside the
+   host loop's. (c) Phase 7's draw written as parquet, prepare-data
+   --streaming, train-model --prepared-dir --exec auto (it must choose,
+   log and report device_loop) and evaluate-model --prepared-dir, with
+   the same checks.
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -97,8 +116,8 @@
    float32 FMA at 67 TFLOP/s, or three TF32 tensor-core passes at 495
    TFLOP/s (3x the flops);
    "bound_route" names the one taken and "share_of_bound" is bound / ms.
-   Each row also carries its launches in phase 7's train-model run and in
-   phase 8's serving (0).
+   Each row also carries its launches in phase 7's train-model run, in
+   phase 7b(b)'s device-loop run and in phase 8's serving (0).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -448,24 +467,89 @@ def run_main_path():
         f"grad_norm {float(m['grad_norm']):.4f}; launches {launches} "
         f"({ {k: v / n_steps for k, v in launches.items()} } per step)")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    profile_steps(step, state, batches, gen)
-    return launches, statistics.median(step_ms)
+    device_ms = profile_steps(step, state, batches, gen)
+    return launches, statistics.median(step_ms), device_ms, (cfg, opt, state, log_q)
 
 
-def profile_steps(step, state, batches, gen, n: int = 5) -> None:
-    """Device time by kernel over ``n`` main-path steps."""
+def profile_steps(step, state, batches, gen, n: int = 5) -> float:
+    """Device time by kernel over ``n`` main-path steps; returns the device
+    ms a step."""
     box = [state]
 
     def one(i):
         box[0], _ = step(box[0], batches[i % len(batches)], gen)
 
-    profile_device(one, n, "step")
+    return profile_device(one, n, "step")[0]
 
 
-def profile_device(fn, n: int, per: str) -> None:
+GRAPH_STEPS = 32  # steps of the graph-timing epochs (25 timed replays fit in one)
+
+
+def time_graph_step(main, eager_ms: float, eager_device_ms: float, card: str) -> dict:
+    """The main-path step replayed from a CUDA graph: the device loop's
+    epoch (training/device_loop.py) at the main path's shape and state, over
+    random columns on the card. Launch counts over a whole epoch (two
+    warm-up steps, the capture, the replays) must equal its steps; then the
+    device ms of 25 single replays (CUDA events around each), the wall ms a
+    step over them, and a profile of 5 replays whose kernel names must count
+    one launch of each kernel a replay."""
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
+
+    cfg, opt, state, log_q = main
+    rng = np.random.default_rng(11)
+    n = GRAPH_STEPS * MAIN_B
+    ds = DeviceDataset(rng.integers(0, NUM_USERS, n), rng.integers(0, NUM_ITEMS, n), MAIN_B,
+                       device="cuda")
+    lq = torch.as_tensor(log_q, device="cuda")
+    prog = make_epoch_fn(cfg, opt, ds.num_steps, num_items=NUM_ITEMS, device="cuda")
+    kernels.reset_launch_counts()
+    state, m = prog(state, ds.columns, 0, lq)
+    loss = float(m["loss"])
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    if any(v != GRAPH_STEPS for v in launches.values()) or not math.isfinite(loss):
+        raise RuntimeError(f"graph epoch: launches {launches} != {GRAPH_STEPS} steps, "
+                           f"loss {loss}")
+    prog.begin_epoch(state, ds.columns, 1, lq)
+    times = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(25):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prog.step()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3 / 25
+    replay_ms = statistics.median(a.elapsed_time(b) for a, b in times)
+    for _ in range(GRAPH_STEPS - 25):
+        prog.step()
+    state, _ = prog.end_epoch()
+    prog.begin_epoch(state, ds.columns, 2, lq)
+    busy_ms, counts = profile_device(lambda i: prog.step(), 5, "replay")
+    for _ in range(GRAPH_STEPS - 5):
+        prog.step()
+    prog.end_epoch()
+    by_kernel = {fn: sum(c for k, c in counts.items() if fn in k)
+                 for fn in ("fused_loss_fwd_kernel", "fused_loss_bwd_du_kernel",
+                            "fused_loss_bwd_dv_kernel")}
+    if any(c != 5 for c in by_kernel.values()):
+        raise RuntimeError(f"profiler: kernel launches over 5 replays {by_kernel}")
+    log(f"  graph epoch: {GRAPH_STEPS} steps, loss {loss:.4f}, launches {launches} "
+        f"(one a step); profiler over 5 replays: {by_kernel} launches")
+    log(f"  replayed step: median {replay_ms:.4f} ms of 25 replays (CUDA events), wall "
+        f"{wall_ms:.4f} ms a step, {MAIN_B / replay_ms * 1e3:.1f} examples/s; eager step: "
+        f"median {eager_ms:.4f} ms, device time {eager_device_ms:.4f} ms a step ({card})")
+    return {"replay_ms": replay_ms, "wall_ms": wall_ms, "replay_device_ms": busy_ms}
+
+
+def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int]]:
     """Device time by kernel over ``n`` calls ``fn(i)`` (torch.profiler), and
     the device's busy share of the window's wall time (the profiler's own
-    cost inflates the wall time, so the share is a lower bound)."""
+    cost inflates the wall time, so the share is a lower bound). Returns the
+    device ms a call and the count of each device event by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -485,6 +569,7 @@ def profile_device(fn, n: int, per: str) -> None:
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"    {e.self_device_time_total / 1e3 / n:9.4f} ms/{per}  x{e.count / n:5.1f}  "
             f"{e.key[:90]}")
+    return busy_ms / n, {e.key: e.count for e in device}
 
 
 SMALL_DATA = ["--synthetic", "--synthetic-users", "200", "--synthetic-items", "100",
@@ -647,19 +732,22 @@ def evaluated_users(into: list):
         Evaluator.evaluate = orig
 
 
-def run_slice(card: str):
-    """train-model then evaluate-model at full width; returns the kernels'
-    launch counts over the train-model run, the first EVAL_B test rows'
-    users of evaluate-model, and the best step."""
+def train_and_evaluate(ckpt: Path, train_data: list, eval_data: list, what: str):
+    """train-model then evaluate-model on its checkpoint, in process, on the
+    card. Launch counts set to 0 just before train-model and read just
+    after must equal its steps; finite losses; best val recall@10 at least
+    10x random; a checkpoint with meta.json at the best step; evaluate-model
+    equal to train_summary.json within 1e-6. Returns the summary, the
+    launches, the users of evaluate-model's first call and the best step."""
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.train import main as train_main
 
-    ckpt = fresh_dir(ROOT / "build" / "chip_smoke_slice")
+    fresh_dir(ckpt)
     args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    summary = run_cli(train_main, args + SLICE_DATA + SLICE_TRAIN)
+    summary = run_cli(train_main, args + train_data + SLICE_TRAIN)
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     t_train = time.perf_counter() - t0
     records = epoch_records(ckpt)
@@ -668,47 +756,197 @@ def run_slice(card: str):
     step_losses = [json.loads(x).get("train/loss") for x in
                    (ckpt / "metrics.jsonl").read_text().splitlines()]
     if not all(math.isfinite(x) for x in losses + [x for x in step_losses if x is not None]):
-        raise RuntimeError(f"non-finite loss in train-model: {losses}")
+        raise RuntimeError(f"{what}: non-finite loss in train-model: {losses}")
     if any(v != steps for v in launches.values()):
-        raise RuntimeError(f"launches {launches} != {steps} steps of train-model")
+        raise RuntimeError(f"{what}: launches {launches} != {steps} steps of train-model")
     random_recall = 10 / summary["num_items"]
     if summary["best_val_metric"] < 10 * random_recall:
-        raise RuntimeError(f"best val recall@10 {summary['best_val_metric']} under 10x "
-                           f"random ({10 * random_recall})")
+        raise RuntimeError(f"{what}: best val recall@10 {summary['best_val_metric']} under "
+                           f"10x random ({10 * random_recall})")
     best = summary["best_step"]
     if not (ckpt / f"step_{best:010d}" / "meta.json").exists():
-        raise RuntimeError(f"no checkpoint with meta.json at step {best}")
+        raise RuntimeError(f"{what}: no checkpoint with meta.json at step {best}")
     t1 = time.perf_counter()
     seen = []
     with evaluated_users(seen):
-        ev = run_cli(eval_main, args + SLICE_DATA + ["--subset", "test"])
+        ev = run_cli(eval_main, args + eval_data + ["--subset", "test"])
     t_eval = time.perf_counter() - t1
     if ev["checkpoint_step"] != best:
-        raise RuntimeError(f"evaluate-model restored step {ev['checkpoint_step']}, best {best}")
+        raise RuntimeError(f"{what}: evaluate-model restored step {ev['checkpoint_step']}, "
+                           f"best {best}")
     if best == steps:  # the checkpoint is the state train-model tested
         bad = {k: (ev["metrics"][k], v) for k, v in summary["test"].items()
                if abs(ev["metrics"][k] - v) > 1e-6}
         check = "evaluate-model test metrics equal train_summary.json's within 1e-6"
     else:  # the summary's test metrics are of the last state, not the best
-        val = run_cli(eval_main, args + SLICE_DATA + ["--subset", "val"])["metrics"]
+        val = run_cli(eval_main, args + eval_data + ["--subset", "val"])["metrics"]
         bad = ({"recall@10": (val["recall@10"], summary["best_val_metric"])}
                if abs(val["recall@10"] - summary["best_val_metric"]) > 1e-6 else {})
         check = "evaluate-model val recall@10 equals the best val metric within 1e-6"
     if bad:
-        raise RuntimeError(f"evaluate-model disagrees with train-model: {bad}")
-    log(f"  train-model: {len(records)} epochs, {steps} steps, {summary['num_users']} users x "
-        f"{summary['num_items']} items, losses {losses}, val recall@10 "
-        f"{[r.get('val/recall@10') for r in records]} (10x random {10 * random_recall}), "
-        f"test recall@10 {summary['test']['recall@10']}; {t_train:.1f} s; "
-        f"launches {launches} (one a step)")
+        raise RuntimeError(f"{what}: evaluate-model disagrees with train-model: {bad}")
+    log(f"  train-model ({summary['execution_rung']}): {len(records)} epochs, {steps} steps, "
+        f"{summary['num_users']} users x {summary['num_items']} items, losses {losses}, val "
+        f"recall@10 {[r.get('val/recall@10') for r in records]} (10x random "
+        f"{10 * random_recall}), test recall@10 {summary['test']['recall@10']}; "
+        f"{t_train:.1f} s; launches {launches} (one a step)")
     log(f"  evaluate-model: step {ev['checkpoint_step']}, {ev['rows']} rows, recall@10 "
         f"{ev['metrics']['recall@10']}; {check}; {t_eval:.1f} s")
+    return summary, launches, seen[0][:EVAL_B], best
+
+
+def run_slice(card: str):
+    """train-model then evaluate-model at full width on the host loop;
+    returns the kernels' launch counts over the train-model run, the first
+    EVAL_B test rows' users of evaluate-model, the best step and the
+    summary."""
+    ckpt = ROOT / "build" / "chip_smoke_slice"
+    summary, launches, users, best = train_and_evaluate(ckpt, SLICE_DATA, SLICE_DATA,
+                                                        "host loop")
     log(f"steady_examples_per_sec {summary['steady_examples_per_sec']} ({card})")
     log(f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
     eval_batch_times(ckpt, card)
+    return row_launches(launches), users, best, summary
+
+
+def row_launches(launches: dict) -> dict:
+    """Wrapper launch counts under the kernel rows' names."""
     return {"fused_loss_fwd": launches["fused_fwd"],
             "fused_loss_bwd_du": launches["fused_bwd_du"],
-            "fused_loss_bwd_dv": launches["fused_bwd_dv"]}, seen[0][:EVAL_B], best
+            "fused_loss_bwd_dv": launches["fused_bwd_dv"]}
+
+
+STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def check_device_loop_small():
+    """One device-loop epoch at a small size, from one state and one
+    permutation, with the warmup + cosine schedule on and dropout 0:
+    captured and replayed on the card against the same epoch eager on the
+    card (metrics rtol 1e-4, state rtol 1e-4 / atol 1e-5), and against the
+    CPU (metrics rtol 1e-4, state the same). The captured run's launches
+    must equal its steps."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
+
+    cfg = Config().with_overrides({
+        "model.embedding_dim": 32, "model.user_tower_dims": [64, 32],
+        "model.item_tower_dims": [64, 32], "model.compute_dtype": "float32",
+        "model.dropout_rate": 0.0, "training.batch_size": 256,
+        "training.warmup_steps": 5, "training.decay_steps": 20,
+    })
+    start = bridge.state_to_numpy(init_train_state(cfg, make_optimizer(cfg.training), 1000, 500,
+                                                   device="cpu"))
+    rng = np.random.default_rng(8)
+    n = 256 * 12 + 37
+    users, items = rng.integers(0, 1000, n), rng.integers(0, 500, n)
+    log_q = np.log(rng.dirichlet(np.ones(500)) + 1e-9).astype(np.float32)
+    perm = rng.permutation(256 * 13)
+    runs = {}
+    for name, dev, capture in (("graph", "cuda", True), ("eager", "cuda", False),
+                               ("cpu", "cpu", False)):
+        state = bridge.state_from_numpy(start, device=dev)
+        ds = DeviceDataset(users, items, 256, device=dev)
+        prog = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, num_items=500,
+                             device=dev, capture=capture)
+        kernels.reset_launch_counts()
+        state, m = prog(state, ds.columns, 0, torch.as_tensor(log_q, device=dev), perm=perm)
+        runs[name] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
+                      {w.__name__: w.launches for w in kernels.WRAPPERS})
+    steps = 13
+    if any(v != steps for v in runs["graph"][2].values()):
+        raise RuntimeError(f"device loop, small: launches {runs['graph'][2]} != {steps} steps")
+    for other in ("eager", "cpu"):
+        a, b = runs["graph"], runs[other]
+        np.testing.assert_allclose([a[0][k] for k in sorted(a[0])], [b[0][k] for k in sorted(a[0])],
+                                   rtol=1e-4, err_msg=f"graph vs {other}: epoch metrics")
+        for part in ("params", "table_state", "opt_state"):
+            for x, y in zip(tree_leaves(a[1][part]), tree_leaves(b[1][part])):
+                np.testing.assert_allclose(x, y, **STATE_TOL, err_msg=f"graph vs {other}: {part}")
+    log(f"  small epoch ({steps} steps, schedule on): metrics graph {runs['graph'][0]}, eager "
+        f"{runs['eager'][0]}, cpu {runs['cpu'][0]}; graph = eager = CPU within the stated "
+        f"tolerances; launches {runs['graph'][2]} (one a step)")
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def run_device_loop_slice(card: str, host: dict):
+    """Phase 7's run on the device-loop rung (train-model --exec
+    device-loop), then evaluate-model on its checkpoint; returns the
+    kernels' launch counts over train-model."""
+    summary, launches, _, _ = train_and_evaluate(
+        ROOT / "build" / "chip_smoke_device_loop", SLICE_DATA + ["--exec", "device-loop"],
+        SLICE_DATA, "device loop")
+    if summary["execution_rung"] != "device_loop":
+        raise RuntimeError(f"train-model reported rung {summary['execution_rung']}")
+    for key in ("steady_examples_per_sec", "train_examples_per_sec"):
+        log(f"{key} device loop {summary[key]}, host loop {host[key]} "
+            f"({summary[key] / host[key]:.2f}x; {card})")
+    return row_launches(launches)
+
+
+@contextlib.contextmanager
+def logged(name: str, into: list):
+    """Collects the messages of logger ``name`` inside."""
+    import logging
+
+    class Collect(logging.Handler):
+        def emit(self, record):
+            into.append(record.getMessage())
+
+    handler = Collect()
+    logger = logging.getLogger(name)
+    logger.addHandler(handler)
+    try:
+        yield
+    finally:
+        logger.removeHandler(handler)
+
+
+def run_prepared_slice(card: str):
+    """Phase 7's synthetic draw written as parquet, prepare-data --streaming
+    over it, train-model --prepared-dir --exec auto (which must choose,
+    log and report the device loop), then evaluate-model --prepared-dir on
+    its checkpoint."""
+    import pandas as pd
+
+    from twotower_tpu_torch.data import generate_interactions
+    from twotower_tpu_torch.data.prepare import main as prepare_main
+
+    base = fresh_dir(ROOT / "build" / "chip_smoke_prepared")
+    raw_dir, prepared = base / "raw", base / "prepared"
+    raw_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    raw = generate_interactions(num_users=200_000, num_items=100_000,
+                                num_interactions=4_000_000, device="cuda")
+    pd.DataFrame({"user_id": raw.user_id, "parent_asin": raw.item_id, "rating": raw.rating,
+                  "timestamp": raw.timestamp}).to_parquet(raw_dir / "interactions.parquet")
+    t1 = time.perf_counter()
+    stats = run_cli(prepare_main, ["--streaming", "--data-dir", str(raw_dir),
+                                   "--output-dir", str(prepared)])
+    t2 = time.perf_counter()
+    log(f"  draw + parquet {t1 - t0:.1f} s; prepare-data --streaming {t2 - t1:.1f} s: {stats}")
+    messages: list[str] = []
+    with logged("twotower_tpu_torch.training.train", messages):
+        summary, launches, _, _ = train_and_evaluate(
+            base / "ckpt", ["--prepared-dir", str(prepared), "--exec", "auto"],
+            ["--prepared-dir", str(prepared)], "prepared dir")
+    chosen = [m for m in messages if m.startswith("execution rung:")]
+    if summary["execution_rung"] != "device_loop" or not chosen or "device_loop" not in chosen[0]:
+        raise RuntimeError(f"--exec auto ran {summary['execution_rung']}, logged {chosen}")
+    log(f"  {chosen[0]}")
+    log(f"steady_examples_per_sec prepared dir {summary['steady_examples_per_sec']}, "
+        f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
+    return row_launches(launches)
 
 
 # Serving: (label, serving.index_type, serving.corpus_dtype) of the four
@@ -1156,14 +1394,22 @@ def main() -> int:
     check_small_step()
 
     log("phase 5: main path")
-    launches, step_ms = run_main_path()
+    launches, step_ms, step_device_ms, main = run_main_path()
+    graph = time_graph_step(main, step_ms, step_device_ms, card)
+    del main
+    torch.cuda.empty_cache()
 
     log("phase 6: train-model and evaluate-model, card against CPU, small")
     check_cli_card_vs_cpu()
     check_twopass()
 
     log("phase 7: train-model and evaluate-model at full width")
-    slice_launches, test_users, best_step = run_slice(card)
+    slice_launches, test_users, best_step, host_summary = run_slice(card)
+
+    log("phase 7b: the device loop")
+    check_device_loop_small()
+    loop_launches = run_device_loop_slice(card, host_summary)
+    run_prepared_slice(card)
 
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
@@ -1178,10 +1424,12 @@ def main() -> int:
              "fused_loss_bwd_dv": "fused_bwd_dv"}
     for row in rows:
         row["launches_train_model"] = slice_launches[row["name"]]
+        row["launches_device_loop"] = loop_launches[row["name"]]
         row["launches_serve_model"] = serve_launches[names[row["name"]]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
-        f"{MAIN_B / step_ms * 1e3:.1f} examples/s")
+        f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "
+        f"{graph['replay_ms']} ms, {MAIN_B / graph['replay_ms'] * 1e3:.1f} examples/s")
     log(json.dumps({
         "ok": True,
         "device": {

@@ -206,7 +206,7 @@ def test_tf32_stays_off_while_any_thread_is_inside():
         with topk.float32_products():
             steps["b_in"].set()
             steps["a_out"].wait(5)
-            seen.append(torch.backends.cuda.matmul.allow_tf32)
+            seen.append(topk.matmul_tf32())
             try:
                 topk._chunk_scores(torch.ones(1, 2), torch.ones(3, 2), 0, 3, 3)
             except RuntimeError as e:  # raised if TF32 were back on

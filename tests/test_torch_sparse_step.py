@@ -22,13 +22,12 @@ from twotower_tpu.config import Config as JaxConfig
 from twotower_tpu.training import sparse as jax_sparse
 from twotower_tpu.training.host_dedup import augment_batch as jax_augment_batch
 from twotower_tpu.training.loop import make_train_step as jax_make_train_step
-from twotower_tpu.training.state import _lr_schedule as jax_lr_schedule
 from twotower_tpu.training.state import make_optimizer as jax_make_optimizer
 from twotower_tpu_torch import bridge
 from twotower_tpu_torch.config import Config
 from twotower_tpu_torch.training import make_optimizer, make_train_step, sparse
 from twotower_tpu_torch.training.host_dedup import augment_batch
-from twotower_tpu_torch.training.state import _lr_schedule
+from twotower_tpu_torch.training.state import lr_at
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
 
 NUM_USERS, NUM_ITEMS, BATCH = 1000, 500, 256
@@ -144,14 +143,20 @@ def test_adam_row_update_packed_matches_jax():
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("warmup,decay", [(10, 0), (10, 100), (0, 50)])
+@pytest.mark.parametrize("warmup,decay", [(10, 0), (10, 100), (0, 50), (0, 0)])
 def test_lr_schedule_matches_optax(warmup, decay):
+    """Also the device twin ``lr_at`` (the device loop's, float32 like
+    optax's) at a 0-d float32 count."""
     over = {"training.warmup_steps": warmup, "training.decay_steps": decay}
-    ours = _lr_schedule(Config().with_overrides(over).training)
-    ref = jax_lr_schedule(JaxConfig().with_overrides(over).training)
+    cfg = Config().with_overrides(over).training
+    ours = sparse.make_lr_fn(cfg)
+    ref = jax_sparse.make_lr_fn(JaxConfig().with_overrides(over).training)
     # optax evaluates in float32, the port in float64: rtol 1e-5.
     for count in (0, 1, 5, 10, 11, 60, 109, 110, 500):
         np.testing.assert_allclose(ours(count), float(ref(count)), rtol=1e-5, atol=1e-12)
+        dev = lr_at(cfg, torch.tensor(float(count)))
+        assert dev.dtype == torch.float32 and dev.dim() == 0
+        np.testing.assert_allclose(float(dev), float(ref(count)), rtol=1e-6, atol=1e-12)
 
 
 def test_unported_paths_raise():

@@ -121,7 +121,7 @@ def test_tf32_is_off_inside_and_restored():
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with topk.float32_products():
-            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not topk.matmul_tf32()
         assert torch.backends.cuda.matmul.allow_tf32
         with pytest.raises(RuntimeError, match="TF32"):
             topk._chunk_scores(torch.zeros(1, 2), torch.zeros(3, 2), 0, 3, 3)

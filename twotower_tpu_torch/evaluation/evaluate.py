@@ -1,12 +1,13 @@
 """``evaluate-model`` for the PyTorch port:
 ``python -m twotower_tpu_torch.evaluation.evaluate``.
 
-Counterpart of ``twotower_tpu/evaluation/evaluate.py`` on the in-memory data
-path (``--synthetic`` or ``--data``): restores a checkpoint of
-``train-model`` (the best-metric step unless ``--step`` pins one), rebuilds
-the held-out split with the SAME deterministic preprocessing and the
-checkpoint's vocab, and reports Recall@K / NDCG@K / MRR over the full
-corpus. ``--prepared-dir`` and ``--mesh`` exit with a ROADMAP.md pointer.
+Counterpart of ``twotower_tpu/evaluation/evaluate.py``: restores a
+checkpoint of ``train-model`` (the best-metric step unless ``--step`` pins
+one), takes the held-out split (from ``--prepared-dir``'s encoded columns,
+after checking the artifact's vocab sizes against the checkpoint's; or
+rebuilt from ``--synthetic``/``--data`` with the SAME deterministic
+preprocessing and the checkpoint's vocab), and reports Recall@K / NDCG@K /
+MRR over the full corpus. ``--mesh`` exits with a ROADMAP.md pointer.
 """
 
 from __future__ import annotations
@@ -42,9 +43,14 @@ def build_argparser() -> argparse.ArgumentParser:
     src.add_argument("--data", type=str, default=None, help="interactions parquet")
     src.add_argument(
         "--prepared-dir", type=str, default=None,
-        help="prepare-data artifact directory (not ported yet)",
+        help="prepare-data artifact directory: score the held-out slice of "
+        "the already-encoded columns without re-running preprocessing",
     )
     src.add_argument("--synthetic", action="store_true")
+    p.add_argument(
+        "--batch-rows", type=int, default=1 << 20,
+        help="rows per streamed parquet chunk for --prepared-dir",
+    )
     p.add_argument("--synthetic-users", type=int, default=2000)
     p.add_argument("--synthetic-items", type=int, default=1000)
     p.add_argument("--synthetic-interactions", type=int, default=100_000)
@@ -112,13 +118,42 @@ def restore_params(
     return state.params, meta
 
 
-def run(args, config: Config) -> dict:
+def _prepared_subset(args, config: Config, ckpt_dir: Path):
+    """``--prepared-dir``: the held-out subset's encoded columns and the
+    artifact's vocab sizes, which must be the checkpoint's."""
+    from twotower_tpu_torch.data.prepared import PreparedDataset
+    from twotower_tpu_torch.data.vocab import VocabPair
+
+    if args.split != "temporal":
+        raise SystemExit("--prepared-dir supports the temporal split only")
+    dataset = PreparedDataset(args.prepared_dir, batch_rows=args.batch_rows)
+    rule = dataset.temporal_rule(
+        config.preprocessing.train_split, config.preprocessing.val_split
+    )
+    num_users, num_items = dataset.num_users, dataset.num_items
+    vocab_dir = ckpt_dir / "vocab"
+    if vocab_dir.exists():
+        # Checkpoint parity: the artifact's id spaces must be the ones the
+        # model was trained with.
+        ckpt_vocab = VocabPair.load(vocab_dir)
+        if len(ckpt_vocab.users) != num_users or len(ckpt_vocab.items) != num_items:
+            raise SystemExit(
+                f"prepared artifact vocab ({num_users} users / {num_items} items) does "
+                f"not match the checkpoint vocab ({len(ckpt_vocab.users)} / "
+                f"{len(ckpt_vocab.items)}); evaluate against the artifact the model "
+                "trained on"
+            )
+    cols = dataset.load_split(rule, args.subset)
+    return cols["user_idx"], cols["item_idx"], num_users, num_items
+
+
+def _in_memory_subset(args, config: Config, ckpt_dir: Path):
+    """``--synthetic``/``--data``: the held-out subset rebuilt with the
+    training-time preprocessing and, where saved, the checkpoint's vocab."""
     from twotower_tpu_torch.data import Preprocessor
     from twotower_tpu_torch.data.vocab import VocabPair
-    from twotower_tpu_torch.evaluation import Evaluator
     from twotower_tpu_torch.training.train import load_interactions
 
-    ckpt_dir = Path(args.checkpoint_dir)
     data = load_interactions(args)
     pp = Preprocessor(config.preprocessing)
     vocab_dir = ckpt_dir / "vocab"
@@ -140,12 +175,20 @@ def run(args, config: Config) -> dict:
 
     splits = pp.split_data(data, method=args.split)
     subset = splits.val if args.subset == "val" else splits.test
-    num_users, num_items = len(pp.vocab.users), len(pp.vocab.items)
+    return subset.user_idx, subset.item_idx, len(pp.vocab.users), len(pp.vocab.items)
+
+
+def run(args, config: Config) -> dict:
+    from twotower_tpu_torch.evaluation import Evaluator
+
+    ckpt_dir = Path(args.checkpoint_dir)
+    subset_of = _prepared_subset if args.prepared_dir else _in_memory_subset
+    user_idx, item_idx, num_users, num_items = subset_of(args, config, ckpt_dir)
     params, meta = restore_params(
         config, ckpt_dir, num_users, num_items, step=args.step, device=args.device
     )
     evaluator = Evaluator(config, num_items, device=args.device)
-    eu, ei = _capped(subset.user_idx, subset.item_idx, getattr(args, "rows", None))
+    eu, ei = _capped(user_idx, item_idx, getattr(args, "rows", None))
     metrics = evaluator.evaluate(params, eu, ei)
     return {
         "subset": args.subset,
@@ -162,9 +205,12 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging()
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.prepared_dir:
-        parser.error("--prepared-dir is not ported yet (ROADMAP.md, Queue 1: the "
-                     "prepared-dir and streaming slice)")
+    if args.prepared_dir and args.split == "random":
+        parser.error(
+            "--prepared-dir supports --split temporal only (the reference's "
+            "temporal 80/10/10 protocol); for --split random use the "
+            "in-memory --data path"
+        )
     if args.mesh:
         parser.error("--mesh is not ported yet (ROADMAP.md, Queue 1: multi-GPU)")
     resolve_device(args.device)  # no GPU: raise before any work

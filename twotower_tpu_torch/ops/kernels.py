@@ -14,7 +14,10 @@ The TPU kernel accumulated dV across its sequential grid; GPU blocks run in
 parallel, so dV has its own kernel that recomputes S from the saved ``lse``
 (deterministic, no atomics). Each wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``. A launch made while a CUDA
+graph is captured does not run then: it is recorded in the
+``record_launches()`` record open at the time, whose ``replayed()`` adds it
+to the counts on each replay of the graph.
 
 Products keep float32 accuracy, as the JAX wrapper casts U and V to
 float32 and the reference holds the loss to rtol 1e-4: every product of the
@@ -27,6 +30,7 @@ bits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from functools import cache
 
@@ -231,7 +235,7 @@ def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
         out.data_ptr() + 16 * rows if n else None, _stream(u),
     )
     _raise_on(rc, "fused_loss_fwd_kernel")
-    fused_fwd.launches += 1
+    _count(fused_fwd)
     return loss, lse, correct, pos
 
 
@@ -259,7 +263,7 @@ def fused_bwd_du(u, v, ids, cols, row_offset: int, lse, g, inv_temp: float):
     if _on_cpu(u, v, ids, cols, lse, g):
         return bwd_du_plain(u, v, ids, cols, row_offset, lse, g, inv_temp)
     du = _bwd("tt_fused_loss_bwd_du", False, u, v, ids, cols, row_offset, lse, g, inv_temp)
-    fused_bwd_du.launches += 1
+    _count(fused_bwd_du)
     return du
 
 
@@ -269,7 +273,7 @@ def fused_bwd_dv(u, v, ids, cols, row_offset: int, lse, g, inv_temp: float):
     if _on_cpu(u, v, ids, cols, lse, g):
         return bwd_dv_plain(u, v, ids, cols, row_offset, lse, g, inv_temp)
     dv = _bwd("tt_fused_loss_bwd_dv", True, u, v, ids, cols, row_offset, lse, g, inv_temp)
-    fused_bwd_dv.launches += 1
+    _count(fused_bwd_dv)
     return dv
 
 
@@ -282,6 +286,52 @@ WRAPPERS = (fused_fwd, fused_bwd_du, fused_bwd_dv)
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+
+
+class LaunchRecord:
+    """The kernel launches of one captured CUDA graph, by wrapper."""
+
+    def __init__(self):
+        self.counts = {w: 0 for w in WRAPPERS}
+
+    def replayed(self, times: int = 1) -> None:
+        """Count the recorded launches once for each of ``times`` replays."""
+        for w, n in self.counts.items():
+            w.launches += n * times
+
+
+# The record of the capture in progress, if any (one capture at a time: the
+# CUDA graph API captures one graph a process under the global mode).
+_capture: list[LaunchRecord] = []
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around a CUDA graph's capture: yields the ``LaunchRecord`` that the
+    launches captured inside go to."""
+    if _capture:
+        raise RuntimeError("record_launches() is already open")
+    rec = LaunchRecord()
+    _capture.append(rec)
+    try:
+        yield rec
+    finally:
+        _capture.clear()
+
+
+def _count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: counted now, or, while the current
+    stream is being captured into a CUDA graph (the launch then runs only on
+    replay), recorded for the replays to count."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+    elif _capture:
+        _capture[0].counts[wrapper] += 1
+    else:
+        raise RuntimeError(
+            f"{wrapper.__name__} captured in a CUDA graph outside record_launches(): "
+            "its replays would go uncounted"
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,10 @@ products and ``torch.topk``.
 
 Scores are float32. A float32 corpus is multiplied with TF32 off (the JAX
 exact code asks for ``Precision.HIGHEST``): every product runs inside
-``float32_products()``, which holds ``torch.backends.cuda.matmul.allow_tf32``
-false while any thread is inside and restores the caller's setting after.
+``float32_products()``, which holds the process-wide TF32 switch off while
+any thread is inside and restores the caller's setting after (the switch is
+``torch.backends.cuda.matmul.fp32_precision`` where PyTorch has it, else the
+legacy ``allow_tf32``).
 A bfloat16 corpus meets bfloat16 queries and accumulates in float32,
 returned in float32, never rounded to bfloat16 (``_scores``). An int8
 corpus meets per-row quantized queries in exact integer arithmetic.
@@ -76,30 +78,53 @@ def exact_scan_chunk(batch_rows: int) -> int:
     return 1 << (capped.bit_length() - 1)
 
 
+_MATMUL = torch.backends.cuda.matmul
+# PyTorch 2.9 and later: ``fp32_precision`` ("ieee", "tf32" or "none", the
+# latter inheriting the global ``torch.backends.fp32_precision``). Once a
+# process sets it, reading the legacy ``allow_tf32`` raises, so where it
+# exists the guard reads and writes it alone.
+_NEW_TF32_API = hasattr(_MATMUL, "fp32_precision")
+
+
+def matmul_tf32() -> bool:
+    """Whether float32 CUDA products may use TF32 now, read through the API
+    this PyTorch has (never the legacy flag where the new one exists)."""
+    if _NEW_TF32_API:
+        return _MATMUL.fp32_precision == "tf32"
+    return bool(_MATMUL.allow_tf32)
+
+
 class _TF32Off:
-    """Holds the process-wide ``allow_tf32`` flag false while any thread is
-    inside ``float32_products()``: the first to enter saves the caller's
-    setting, the last to leave restores it. A save and restore per thread
-    would let one thread restore TF32 while another is mid-product (the
-    serving front searches from several executor threads at once)."""
+    """Holds the process-wide TF32 switch off while any thread is inside
+    ``float32_products()``: the first to enter saves the caller's setting,
+    the last to leave restores it. A save and restore per thread would let
+    one thread restore TF32 while another is mid-product (the serving front
+    searches from several executor threads at once)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._depth = 0
-        self._saved = False
+        self._saved: str | bool = False
 
     def enter(self) -> None:
         with self._lock:
             if self._depth == 0:
-                self._saved = torch.backends.cuda.matmul.allow_tf32
-                torch.backends.cuda.matmul.allow_tf32 = False
+                if _NEW_TF32_API:
+                    self._saved = _MATMUL.fp32_precision
+                    _MATMUL.fp32_precision = "ieee"
+                else:
+                    self._saved = _MATMUL.allow_tf32
+                    _MATMUL.allow_tf32 = False
             self._depth += 1
 
     def leave(self) -> None:
         with self._lock:
             self._depth -= 1
             if self._depth == 0:
-                torch.backends.cuda.matmul.allow_tf32 = self._saved
+                if _NEW_TF32_API:
+                    _MATMUL.fp32_precision = self._saved
+                else:
+                    _MATMUL.allow_tf32 = self._saved
 
 
 # One guard for the process, as the flag it guards is one for the process.
@@ -138,7 +163,7 @@ def _scores(query: torch.Tensor, chunk: torch.Tensor) -> torch.Tensor:
     order only). A bf16 matmul returning bf16 would round every score to 8
     significant bits before the top-k."""
     if chunk.dtype == torch.float32:
-        if torch.backends.cuda.matmul.allow_tf32:
+        if matmul_tf32():
             raise RuntimeError("float32 search needs TF32 off (run inside float32_products())")
         return query.float() @ chunk.T
     if chunk.dtype != torch.bfloat16:

@@ -1,5 +1,5 @@
-"""What the host training loop costs on top of the bare train step, on one
-CUDA card.
+"""What the training loop costs on top of the bare train step, on one CUDA
+card: the host loop's input and dispatch, and the device loop's replays.
 
     python3 twotower_tpu_torch/tools/loop_cost.py
 
@@ -19,7 +19,16 @@ tables of ``chip_smoke.py`` phase 7 (198,072 users x 99,978 items) and
   feeds the step, but without the Trainer;
 - ``trainer``: ``Trainer.fit`` for one epoch of the same pipeline, no
   validation or checkpoint: examples / epoch wall time (its
-  ``steady_examples_per_sec``, the whole epoch, first steps included).
+  ``steady_examples_per_sec``, the whole epoch, first steps included);
+- ``graph``: the device loop (``training/device_loop.py``) over the same
+  rows as columns on the card: the step (in-device dedup) captured as a
+  CUDA graph in a first epoch, then ``STEPS`` replays of the second;
+- ``device_trainer``: ``DeviceTrainer.fit`` for one epoch (its warm-up
+  steps and the capture included), no validation or checkpoint.
+
+``device`` against ``host`` and ``prefetch`` prices the input's way onto the
+card, ``graph`` against ``device`` the host's dispatch of some 300 launches a
+step, and ``trainer`` / ``device_trainer`` the loop around the step.
 
 It prints one ``loop_cost: {...}`` line a mode (ms a step, examples/s) and
 the card's name and power limit. Any failure exits non-zero.
@@ -82,6 +91,11 @@ def main() -> int:
     from twotower_tpu_torch.data import BatchPipeline, DevicePrefetcher, torch_put
     from twotower_tpu_torch.models.two_tower import dead_row
     from twotower_tpu_torch.training import Trainer
+    from twotower_tpu_torch.training.device_loop import (
+        DeviceDataset,
+        DeviceTrainer,
+        make_epoch_fn,
+    )
     from twotower_tpu_torch.training.host_dedup import augment_epoch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -113,11 +127,36 @@ def main() -> int:
         print("loop_cost: " + json.dumps(
             {"mode": name, "ms_per_step": ms, "examples_per_sec": BATCH / ms * 1e3}), flush=True)
     result = trainer.fit(state, pipe, start_epoch=0)
+    _report("trainer", result)
+    state = result.state
+
+    ds = DeviceDataset(cols.user_idx, cols.item_idx, BATCH, device="cuda")
+    lq = torch.as_tensor(log_q, dtype=torch.float32, device="cuda")
+    prog = make_epoch_fn(cfg, trainer.optimizer, ds.num_steps, num_items=NUM_ITEMS)
+    state, _ = prog(state, ds.columns, 0, lq)  # warm-up steps and the capture
+    prog.begin_epoch(state, ds.columns, 1, lq)
+    for _ in range(WARM):
+        prog.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(STEPS):
+        prog.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / STEPS
+    for _ in range(ds.num_steps - WARM - STEPS):
+        prog.step()
+    state, _ = prog.end_epoch()
+    print("loop_cost: " + json.dumps(
+        {"mode": "graph", "ms_per_step": ms, "examples_per_sec": BATCH / ms * 1e3}), flush=True)
+    _report("device_trainer", DeviceTrainer(cfg, log_q=log_q, num_items=NUM_ITEMS).fit(state, ds))
+    return 0
+
+
+def _report(mode: str, result) -> None:
     eps = result.steady_examples_per_sec
     print("loop_cost: " + json.dumps(
-        {"mode": "trainer", "ms_per_step": BATCH / eps * 1e3, "examples_per_sec": eps,
+        {"mode": mode, "ms_per_step": BATCH / eps * 1e3, "examples_per_sec": eps,
          "steps": int(result.state.step)}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ from twotower_tpu_torch.training.state import (
     TrainState,
     _lr_schedule,
     f32_pow,
+    lr_at,
     tree_leaves,
     tree_map,
 )
@@ -80,23 +81,30 @@ def adam_row_update_packed(
     grads: torch.Tensor,
     valid: torch.Tensor,
     *,
-    lr: float,
+    lr: float | torch.Tensor,
     b1: float,
     b2: float,
     eps: float,
-    step: int,
+    step: int | torch.Tensor,
 ) -> None:
     """Lazy Adam on the targeted rows, in place, with mu/nu packed as
     ``moments[:, :E] / [:, E:]``. ``targets`` must be unique apart from
-    zero-masked (``valid`` false) rows."""
+    zero-masked (``valid`` false) rows. ``lr`` and ``step`` are Python
+    numbers, or 0-d float32 tensors on the device (``b ** step`` then
+    computed there in float32, as the JAX update does), which a CUDA graph
+    can capture."""
     e = table.shape[1]
     targets = targets.long()
     mask = valid.to(table.dtype)[:, None]
     mo_rows = moments[targets]
     new_mu = b1 * mo_rows[:, :e] + (1.0 - b1) * grads
     new_nu = b2 * mo_rows[:, e:] + (1.0 - b2) * (grads * grads)
-    mu_hat = new_mu / (1.0 - f32_pow(b1, step))
-    nu_hat = new_nu / (1.0 - f32_pow(b2, step))
+    if isinstance(step, torch.Tensor):
+        c1, c2 = 1.0 - torch.pow(b1, step), 1.0 - torch.pow(b2, step)
+    else:
+        c1, c2 = 1.0 - f32_pow(b1, step), 1.0 - f32_pow(b2, step)
+    mu_hat = new_mu / c1
+    nu_hat = new_nu / c2
     update = lr * mu_hat / (torch.sqrt(nu_hat) + eps)
     table.index_add_(0, targets, -update * mask)
     new_mo = torch.cat([new_mu, new_nu], dim=1)
@@ -116,8 +124,8 @@ def sparse_table_updates(
     table_state: dict,
     row_grads: dict[str, tuple[torch.Tensor, torch.Tensor]],
     *,
-    lr: float,
-    step: int,
+    lr: float | torch.Tensor,
+    step: int | torch.Tensor,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
@@ -160,8 +168,15 @@ def sparse_table_updates(
 
 def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None):
     """Train step with sparse table updates: ``step(state, batch, rng,
-    log_q=None)`` with ``batch`` a dict of tensors on the state's device and
-    ``rng`` a ``torch.Generator`` there (dropout masks).
+    log_q=None, clock=None)`` with ``batch`` a dict of tensors on the state's
+    device and ``rng`` a ``torch.Generator`` there (dropout masks).
+
+    ``clock``, a 0-d float32 tensor on the device holding the step count
+    before this step, makes the step capturable in a CUDA graph: the
+    learning rate (``training.state.lr_at``) and both Adams' bias corrections are
+    then computed from it on the device, and it is advanced in place, so a
+    replay takes the next step's numbers. Without it they are Python
+    numbers from ``state.step``, as in the host loop.
 
     Differentiates the loss w.r.t. the gathered embedding rows (not the
     tables), applies the dense optimizer to the towers and lazy-Adam row
@@ -182,7 +197,8 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
     lr_fn = make_lr_fn(config.training)
 
     def step(state: TrainState, batch: dict, rng: torch.Generator | None,
-             log_q: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
+             log_q: torch.Tensor | None = None,
+             clock: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
         tables, dense = split_params(state.params)
         u_ids = batch["user_idx"]
         i_ids = batch["item_idx"]
@@ -213,29 +229,36 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
             *dense_grads, u_grad, i_grad = torch.autograd.grad(
                 loss, [*leaves, u_rows, i_rows]
             )
+        if clock is None:
+            lr, step_num = lr_fn(state.step), state.step + 1
+        else:
+            lr, step_num = lr_at(config.training, clock), clock + 1.0
         # A flat list is its own leaf order, the one ``leaves`` came in.
-        new_opt = dense_optimizer.update_(dense, dense_grads, state.opt_state)
+        new_opt = dense_optimizer.update_(
+            dense, dense_grads, state.opt_state, clock=clock, lr=None if clock is None else lr
+        )
 
         pre = {}
         if "u_targets" in batch:
             pre["user_embedding"] = (batch["u_targets"], batch["u_seg"], batch["u_valid"])
         if "i_targets" in batch:
             pre["item_embedding"] = (batch["i_targets"], batch["i_seg"], batch["i_valid"])
-        step_num = state.step + 1
         tbl_norm_sq = sparse_table_updates(
             tables,
             state.table_state,
             {"user_embedding": (u_ids, u_grad), "item_embedding": (i_ids, i_grad)},
-            lr=lr_fn(state.step),
+            lr=lr,
             step=step_num,
             pre=pre or None,
         )
+        if clock is not None:
+            clock.add_(1.0)
         dense_sq = sum(torch.sum(g * g) for g in dense_grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         metrics["grad_norm"] = torch.sqrt(dense_sq + tbl_norm_sq)
         new_state = TrainState(
-            step=step_num,
+            step=state.step + 1,
             params=state.params,
             opt_state=new_opt,
             table_state=state.table_state,

@@ -75,22 +75,46 @@ class Adam:
         )
 
     @torch.no_grad()
-    def update_(self, params: Any, grads: Any, state: AdamState) -> AdamState:
+    def update_(
+        self,
+        params: Any,
+        grads: Any,
+        state: AdamState,
+        *,
+        clock: torch.Tensor | None = None,
+        lr: torch.Tensor | None = None,
+    ) -> AdamState:
         """Update ``params`` and the moments in place; returns the state
-        with the count advanced."""
-        lr = self.lr(state.count)
-        count = state.count + 1
+        with the count advanced.
+
+        With ``clock`` (the count before this update, a 0-d float32 tensor
+        on the device) and ``lr`` (a 0-d tensor there), the bias corrections
+        are computed on the device from ``clock + 1``, as the JAX step
+        computes them from its count array, so the update can be captured
+        in a CUDA graph and replayed; ``state.count`` is then host
+        bookkeeping only."""
         b1, b2 = self.b1, self.b2
-        c1 = 1.0 - f32_pow(b1, count)
-        c2 = 1.0 - f32_pow(b2, count)
+        if clock is None:
+            lr = self.lr(state.count)
+            count = state.count + 1
+            c1 = 1.0 - f32_pow(b1, count)
+            c2 = 1.0 - f32_pow(b2, count)
+        else:
+            t = clock + 1.0
+            c1 = 1.0 - torch.pow(b1, t)
+            c2 = 1.0 - torch.pow(b2, t)
         for p, g, mu, nu in zip(
             tree_leaves(params), tree_leaves(grads),
             tree_leaves(state.mu), tree_leaves(state.nu),
         ):
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
-            p.add_((mu / c1) / (torch.sqrt(nu / c2) + self.eps), alpha=-lr)
-        return AdamState(count=count, mu=state.mu, nu=state.nu)
+            step = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+            if clock is None:
+                p.add_(step, alpha=-lr)
+            else:
+                p.sub_(step * lr)
+        return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)
 
 
 def f32_pow(base: float, exp: int) -> float:
@@ -192,6 +216,30 @@ def _lr_schedule(config: TrainingConfig) -> Schedule:
         return peak * ((1.0 - alpha) * cosine + alpha)
 
     return schedule
+
+
+def lr_at(config: TrainingConfig, count: torch.Tensor) -> torch.Tensor:
+    """The learning rate at ``count`` (a 0-d float32 tensor on the device),
+    computed there in float32 as optax computes it from its count array:
+    the device twin of the constant rate and of ``_lr_schedule``."""
+    peak = config.learning_rate
+    if config.warmup_steps <= 0 and config.decay_steps <= 0:
+        return torch.full_like(count, peak)
+
+    def linear(init: float, end: float, steps: int) -> torch.Tensor:
+        if steps <= 0:
+            return torch.full_like(count, init)
+        frac = 1.0 - torch.clamp(count, 0, steps) / steps
+        return (init - end) * frac + end
+
+    if config.decay_steps <= 0:
+        return linear(0.0, peak, config.warmup_steps)
+    warmup = max(config.warmup_steps, 0)
+    warm = linear(0.0 if config.warmup_steps > 0 else peak, peak, warmup)
+    t = torch.clamp(count - warmup, max=config.decay_steps)
+    cosine = 0.5 * (1.0 + torch.cos(math.pi * t / config.decay_steps))
+    alpha = 0.01
+    return torch.where(count < warmup, warm, peak * ((1.0 - alpha) * cosine + alpha))
 
 
 def make_optimizer(config: TrainingConfig) -> Adam:

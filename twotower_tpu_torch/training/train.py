@@ -1,12 +1,17 @@
 """``train-model`` for the PyTorch port:
 ``python -m twotower_tpu_torch.training.train``.
 
-Counterpart of ``twotower_tpu/training/train.py`` on the in-memory data path
-(``--synthetic`` or ``--data``): config -> data -> preprocess (k-core,
-vocab, split) -> Trainer with full-corpus validation, early stopping and
+Counterpart of ``twotower_tpu/training/train.py``: config -> data (the
+in-memory path, ``--synthetic`` or ``--data``, which preprocesses: k-core,
+vocab, split; or ``--prepared-dir``, a ``prepare-data`` artifact read
+without preprocessing again) -> one of three execution rungs (``--exec``:
+the host loop, the device loop with every step a CUDA graph replay, or
+batches streamed from the artifact; ``auto`` lets ``training.rungs`` choose
+on ``--prepared-dir`` runs) with full-corpus validation, early stopping and
 checkpoints -> final artifacts (``config.json``, ``vocab/``, a checkpoint,
-``train_summary.json`` with the test metrics), the same files the JAX CLI
-writes. Runs on ``--device cuda`` (the default) or ``--device cpu``.
+``train_summary.json`` with the test metrics and the rung that ran), the
+same files the JAX CLI writes. Runs on ``--device cuda`` (the default) or
+``--device cpu``.
 
 The flags of the JAX CLI that belong to slices not ported yet are kept and
 exit with a message naming the ROADMAP.md item (``UNPORTED``).
@@ -26,12 +31,9 @@ from twotower_tpu_torch.logging_utils import get_logger, setup_logging
 
 logger = get_logger(__name__)
 
-_PREPARED = "ROADMAP.md, Queue 1: the prepared-dir and streaming slice"
 # flag (argparse dest) -> the ROADMAP.md item that ports it.
 UNPORTED = {
-    "prepared_dir": _PREPARED,
-    "stream_batches": _PREPARED,
-    "device_loop": _PREPARED,
+    "shard_input": "ROADMAP.md, Queue 1: multi-GPU",
     "mesh": "ROADMAP.md, Queue 1: multi-GPU",
     "coordinator": "ROADMAP.md, Queue 1: multi-GPU",
     "synthetic_text": "ROADMAP.md, Queue 1: text towers",
@@ -59,7 +61,8 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     src.add_argument(
         "--prepared-dir", type=str, default=None,
-        help=f"prepare-data artifact directory (not ported yet: {_PREPARED})",
+        help="prepare-data artifact directory (combined_interactions.parquet + "
+        "vocab manifest): its encoded columns and vocab, without preprocessing again",
     )
     src.add_argument(
         "--synthetic", action="store_true",
@@ -67,13 +70,31 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--stream-batches", action="store_true",
-        help=f"stream train batches from --prepared-dir (not ported yet: {_PREPARED})",
+        help="with --prepared-dir: stream train batches from the parquet chunk by "
+        "chunk (windowed shuffle, bounded host memory); forces the 'stream' rung",
     )
     p.add_argument(
         "--exec", choices=["auto", "host", "device-loop", "stream"],
         default="auto", dest="exec_rung",
-        help="execution rung: 'auto' and 'host' run the host loop; "
-        f"'device-loop' and 'stream' are not ported yet ({_PREPARED})",
+        help="execution rung. 'auto' (default) picks, on --prepared-dir runs, the "
+        "best rung the device and host memory allow (training.rungs): the device "
+        "loop when the columns and the train state fit the device, else the host "
+        "loop, else streaming; elsewhere it runs the host loop. --device-loop and "
+        "--stream-batches force their rung",
+    )
+    p.add_argument(
+        "--shuffle-buffer", type=int, default=None,
+        help="windowed-shuffle buffer rows for --stream-batches (default 8M rows, or "
+        "what 'auto' sized); the window is a quality dial on time-sorted artifacts",
+    )
+    p.add_argument(
+        "--shard-input", action="store_true",
+        help="with --stream-batches on a multi-process run: each process reads only "
+        "its own batch rows (not ported yet: ROADMAP.md, Queue 1: multi-GPU)",
+    )
+    p.add_argument(
+        "--batch-rows", type=int, default=1 << 20,
+        help="rows per streamed parquet chunk for --prepared-dir",
     )
     p.add_argument("--synthetic-users", type=int, default=2000)
     p.add_argument("--synthetic-items", type=int, default=1000)
@@ -102,7 +123,9 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device-loop", action="store_true",
-        help=f"device-resident epochs (not ported yet: {_PREPARED})",
+        help="device-resident epochs: the columns on the device, the permutation "
+        "drawn there, every step one replay of the step captured as a CUDA graph "
+        "(eager on --device cpu)",
     )
     p.add_argument("--mesh", action="store_true",
                    help="train over all visible devices (not ported yet)")
@@ -113,14 +136,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def unported_flags(args) -> list[str]:
     """Messages for the flags of slices not ported yet that ``args`` uses."""
-    out = [
+    return [
         f"--{dest.replace('_', '-')} is not ported yet ({where})"
         for dest, where in UNPORTED.items()
         if getattr(args, dest, None)
     ]
-    if getattr(args, "exec_rung", "auto") not in ("auto", "host"):
-        out.append(f"--exec {args.exec_rung} is not ported yet ({_PREPARED})")
-    return out
 
 
 def strided_subsample(n: int, cap: int) -> np.ndarray:
@@ -150,7 +170,7 @@ def load_interactions(args):
 
 
 class _EncodedColumns:
-    """Minimal encoded-columns view (what BatchPipeline reads)."""
+    """Minimal encoded-columns view (what BatchPipeline and DeviceDataset read)."""
 
     def __init__(self, user_idx, item_idx):
         self.user_idx = user_idx
@@ -160,11 +180,30 @@ class _EncodedColumns:
         return len(self.user_idx)
 
 
+def _resolve_forced_rung(args) -> None:
+    """``--exec`` is sugar over the rung-forcing flags, as in the JAX CLI."""
+    if args.exec_rung == "device-loop":
+        args.device_loop = True
+    elif args.exec_rung == "stream":
+        args.stream_batches = True
+    if args.stream_batches and args.device_loop:
+        raise SystemExit(
+            "--stream-batches is incompatible with --device-loop (the "
+            "device-resident epoch holds all train columns on device)"
+        )
+
+
 def run(args, config: Config) -> dict:
     from twotower_tpu_torch.data import Preprocessor
-    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
-    from twotower_tpu_torch.utils.tracking import build_writers
 
+    _resolve_forced_rung(args)
+    if args.prepared_dir:
+        return _run_prepared(args, config)
+    if args.stream_batches:
+        # The stream rung reads a prepare-data artifact; the in-memory path
+        # has none, so it trains on the host loop and reports so.
+        logger.warning("--stream-batches needs --prepared-dir; running the host loop")
+        args.stream_batches = False
     data = load_interactions(args)
     pp = Preprocessor(config.preprocessing)
     data = pp.process(data)
@@ -174,13 +213,7 @@ def run(args, config: Config) -> dict:
         "data: %d train / %d val / %d test; %d users, %d items",
         len(splits.train), len(splits.val), len(splits.test), num_users, num_items,
     )
-    ckpt_dir = Path(args.checkpoint_dir or config.training.checkpoint_dir)
-    manager = CheckpointManager(
-        ckpt_dir, keep=config.training.keep_checkpoints,
-        async_save=config.training.async_checkpoint,
-        min_interval_s=config.training.checkpoint_min_interval_s,
-    )
-    writers = build_writers(args.writers, jsonl_path=ckpt_dir / "metrics.jsonl")
+    ckpt_dir, manager, writers = _outputs(args, config)
     return _fit_and_summarize(
         args,
         config,
@@ -197,6 +230,90 @@ def run(args, config: Config) -> dict:
     )
 
 
+def _outputs(args, config: Config):
+    """The checkpoint directory, its manager and the metric writers."""
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+    from twotower_tpu_torch.utils.tracking import build_writers
+
+    ckpt_dir = Path(args.checkpoint_dir or config.training.checkpoint_dir)
+    manager = CheckpointManager(
+        ckpt_dir, keep=config.training.keep_checkpoints,
+        async_save=config.training.async_checkpoint,
+        min_interval_s=config.training.checkpoint_min_interval_s,
+    )
+    writers = build_writers(args.writers, jsonl_path=ckpt_dir / "metrics.jsonl")
+    return ckpt_dir, manager, writers
+
+
+def _run_prepared(args, config: Config) -> dict:
+    """``--prepared-dir``: the encoded columns and vocab of a prepare-data
+    artifact, without preprocessing again; ``--exec auto`` chooses the rung
+    from the device's and the host's free memory (``training.rungs``)."""
+    from twotower_tpu_torch.data.prepared import PreparedDataset
+    from twotower_tpu_torch.training import rungs
+
+    dataset = PreparedDataset(args.prepared_dir, batch_rows=args.batch_rows)
+    num_users, num_items = dataset.num_users, dataset.num_items
+    rule = dataset.temporal_rule(
+        config.preprocessing.train_split, config.preprocessing.val_split
+    )
+    logger.info(
+        "prepared data: %d train / %d val / %d test; %d users, %d items",
+        rule.n_train, rule.n_val, rule.n_test, num_users, num_items,
+    )
+    if args.exec_rung == "auto" and not args.device_loop and not args.stream_batches:
+        decision = rungs.choose_execution_rung(
+            n_train=rule.n_train,
+            num_users=num_users,
+            num_items=num_items,
+            config=config,
+            device_free_bytes=rungs.device_free_bytes(args.device),
+            host_available_bytes=rungs.host_available_bytes(),
+            has_eval=not args.no_eval,
+        )
+        logger.info("execution rung: %s (auto) — %s", decision.rung, decision.reason)
+        if decision.rung == "device_loop":
+            args.device_loop = True
+        elif decision.rung == "stream":
+            args.stream_batches = True
+            if args.shuffle_buffer is None:
+                args.shuffle_buffer = decision.shuffle_buffer
+    if args.shuffle_buffer is None:
+        args.shuffle_buffer = 1 << 23
+    ckpt_dir, manager, writers = _outputs(args, config)
+
+    train_cols = None
+    train_pipeline = None
+    if args.stream_batches:
+        # One classification scan materializes both held-out splits.
+        splits = dataset.load_splits(rule, ("val", "test"))
+        train_pipeline = dataset.train_pipeline(
+            rule, config.training.batch_size, seed=config.training.seed,
+            shuffle_buffer=args.shuffle_buffer,
+        )
+    else:
+        # All three splits in one full-corpus scan.
+        splits = dataset.load_splits(rule, ("train", "val", "test"))
+        train = splits["train"]
+        train_cols = _EncodedColumns(train["user_idx"], train["item_idx"])
+    val, test = splits["val"], splits["test"]
+    return _fit_and_summarize(
+        args,
+        config,
+        num_users=num_users,
+        num_items=num_items,
+        log_q=dataset.log_q(),
+        ckpt_dir=ckpt_dir,
+        manager=manager,
+        writers=writers,
+        save_vocab=lambda d: dataset.vocab.save(d / "vocab"),
+        train_cols=train_cols,
+        train_pipeline=train_pipeline,
+        val_arrays=(val["user_idx"], val["item_idx"]),
+        test_arrays=(test["user_idx"], test["item_idx"]),
+    )
+
+
 def _fit_and_summarize(
     args,
     config: Config,
@@ -208,13 +325,17 @@ def _fit_and_summarize(
     manager,
     writers,
     save_vocab,
-    train_cols,
     val_arrays,
     test_arrays,
+    train_cols=None,
+    train_pipeline=None,
 ) -> dict:
-    """Config snapshot -> Trainer -> fit -> artifacts + summary."""
+    """Config snapshot -> the rung's trainer -> fit -> artifacts + summary.
+    The device loop takes ``train_cols``; the host loop a ``BatchPipeline``
+    over them, or the streamed ``train_pipeline``."""
     from twotower_tpu_torch.data import BatchPipeline
     from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, DeviceTrainer
     from twotower_tpu_torch.training.loop import Trainer
     from twotower_tpu_torch.utils.profiling import GracefulShutdown, trace
 
@@ -238,7 +359,8 @@ def _fit_and_summarize(
     )
     shutdown = GracefulShutdown().install()
     try:
-        trainer = Trainer(
+        trainer_cls = DeviceTrainer if args.device_loop else Trainer
+        trainer = trainer_cls(
             config,
             log_q=log_q,
             evaluate_fn=evaluate_fn,
@@ -248,9 +370,16 @@ def _fit_and_summarize(
             num_items=num_items,
             device=args.device,
         )
-        train_input = BatchPipeline(
-            train_cols, config.training.batch_size, seed=config.training.seed
-        )
+        if args.device_loop:
+            train_input = DeviceDataset.from_interactions(
+                train_cols, config.training.batch_size, device=trainer.device
+            )
+        elif train_pipeline is not None:
+            train_input = train_pipeline
+        else:
+            train_input = BatchPipeline(
+                train_cols, config.training.batch_size, seed=config.training.seed
+            )
         state = trainer.init_state(num_users, num_items)
         start_epoch = 0
         if args.resume and manager.latest_step() is not None:
@@ -296,7 +425,12 @@ def _fit_and_summarize(
         "checkpoint_dir": str(ckpt_dir),
         "num_users": num_users,
         "num_items": num_items,
-        "execution_rung": "host",
+        # The rung that ran (chosen by --exec auto or forced).
+        "execution_rung": (
+            "device_loop" if args.device_loop
+            else "stream" if args.stream_batches
+            else "host"
+        ),
         "device": str(trainer.device),
     }
     (ckpt_dir / "train_summary.json").write_text(json.dumps(summary, indent=2))
@@ -309,6 +443,12 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging()
     parser = build_argparser()
     args = parser.parse_args(argv)
+    if args.prepared_dir and args.split == "random":
+        parser.error(
+            "--prepared-dir supports --split temporal only (the reference's "
+            "temporal 80/10/10 protocol); for --split random use the "
+            "in-memory --data path"
+        )
     unported = unported_flags(args)
     if unported:
         parser.error("; ".join(unported))
