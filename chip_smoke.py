@@ -16,13 +16,23 @@
    (B=1000; a 300-row block at offset 500 with D=96; B=4097, a ragged
    tile and slice edge; B=1000 at D=20, depth not a multiple of 8; B=600
    at D=30, rows not 16-byte aligned, so 4-byte copies; B=512 at D=256,
-   deeper than one tile, unit-norm rows). Tolerances: forward outputs rtol 1e-4
+   deeper than one tile, unit-norm rows; B=4096 at D=64, unit-norm rows, the
+   depth phase 7c trains at). Tolerances: forward outputs rtol 1e-4
    / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of the
    forward, two of dU and two of dV must give the same bits.
 4. Small-input check of the whole step: three steps at embedding 32,
    towers [64,32], batch 256, float32 compute, dropout 0, from one state,
    on the card (kernels) and on the CPU (plain versions); loss and
    grad_norm rtol 1e-4, final tables and moments rtol 1e-4 / atol 1e-5.
+4b. Uniform and mixed sampling, small (embedding 32, towers [64,32],
+   float32, dropout 0, batch 256, 64 negatives over 500 items): three steps
+   of each mode on the card against the CPU with the same negative ids
+   handed to both (losses rtol 1e-4, tables and moments rtol 1e-4 / atol
+   1e-5); a 9-step mixed device-loop epoch captured and replayed against
+   the same epoch eager on the card with the same generator seed (metrics
+   rtol 1e-4, state rtol 1e-4 / atol 1e-5), where replays 2 and 3 must
+   update different sampled item rows (outside their positives), and no
+   fused-loss kernel runs.
 5. Main path: the default model (embedding 128, towers [512,256,128], bf16
    compute, dropout 0.1, in-batch softmax with log q, lazy-Adam tables, host
    dedup) at batch 4096 over 1M users x 500k items, through
@@ -35,7 +45,12 @@
    (2 warm-up steps, the capture, the replays) whose launches must equal
    its 32 steps, 25 single replays timed by CUDA events (median) and by
    the wall clock, and 5 replays profiled (each kernel's name must count 5
-   launches), printed beside the eager step's median and device time.
+   launches) with the device time by kind of kernel, printed beside the
+   eager step's median and device time.
+5b. Phase 5's replayed step with retrieval.candidate_sampling=mixed and
+   2,048 negatives (configs/pod_571m.yaml's per-device candidate set) on
+   phase 5's state: launch counts 0 over the epoch and in the profile; its
+   replay ms beside the in-batch replay's, and its device time by kind.
 6. Card against CPU, small: the train-model and evaluate-model CLIs, in
    process through main(argv), at the CLI tests' sizes (200 users, 100
    items, 5000 interactions, embedding 16, towers [32,16], batch 64,
@@ -74,6 +89,16 @@
    --streaming, train-model --prepared-dir --exec auto (it must choose,
    log and report device_loop) and evaluate-model --prepared-dir, with
    the same checks.
+7c. Oracle parity at config2 (tools/oracle_parity.py's preset, its
+   stages in process): the generator's stats, the artifact's rows, users,
+   items and temporal split, and the ceiling's and plug-in's metrics and
+   median ranks held to the JAX package's record (recall@k within one test
+   row, 1.2e-5; ndcg@k and mrr within 1e-6; counts and median ranks
+   exactly); train-model --prepared-dir on the device loop (launch counts
+   set to 0 just before and read just after equal its steps); the student's
+   ceiling fraction of recall@10 at least ORACLE_MIN_FRACTION. Prints every
+   metric's fraction and each stage's seconds as one {"oracle_parity": ...}
+   JSON line.
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -117,7 +142,8 @@
    TFLOP/s (3x the flops);
    "bound_route" names the one taken and "share_of_bound" is bound / ms.
    Each row also carries its launches in phase 7's train-model run, in
-   phase 7b(b)'s device-loop run and in phase 8's serving (0).
+   phase 7b(b)'s device-loop run, in phase 7c's train stage and in phase
+   8's serving (0).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -176,6 +202,8 @@ CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     # Unit-norm rows at D=256: with raw rows the logits reach ~500, and
     # float32 itself is then at 0.8 of the tolerance against float64.
     (512, 256, 512, 0, True),
+    # The oracle parity run's shape (phase 7c: config2, embedding 64).
+    (MAIN_B, 64, MAIN_B, 0, True),
 ]
 
 
@@ -425,6 +453,105 @@ def check_small_step():
     log(f"  card vs CPU, 3 steps: (loss, grad_norm) cuda {metrics['cuda']} cpu {metrics['cpu']}")
 
 
+SAMPLING_SMALL = {
+    "model.embedding_dim": 32, "model.user_tower_dims": [64, 32],
+    "model.item_tower_dims": [64, 32], "model.compute_dtype": "float32",
+    "model.dropout_rate": 0.0, "training.batch_size": 256, "retrieval.num_negatives": 64,
+}
+
+
+def check_sampling_small():
+    """Uniform and mixed sampling at a small size: three steps of each on
+    the card against the CPU from one state with the same negative ids
+    handed to both (losses rtol 1e-4, tables and moments rtol 1e-4 / atol
+    1e-5); then a mixed device-loop epoch captured and replayed against the
+    same epoch eager on the card with the same generator seed (metrics rtol
+    1e-4, state rtol 1e-4 / atol 1e-5), in which two replays draw
+    different negatives (read from the item rows each replay updates,
+    outside its positives), and no fused-loss kernel runs."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
+    from twotower_tpu_torch.training.sparse import make_sparse_step_fn
+
+    rng = np.random.default_rng(9)
+    for mode in ("uniform", "mixed"):
+        cfg = Config().with_overrides({**SAMPLING_SMALL, "retrieval.candidate_sampling": mode})
+        start = bridge.state_to_numpy(init_train_state(cfg, make_optimizer(cfg.training), 1000,
+                                                       500, device="cpu"))
+        rows_i = start["params"]["item_embedding"].shape[0]
+        log_q = np.log(rng.dirichlet(np.ones(rows_i)) + 1e-9).astype(np.float32)
+        batches = host_batches(3, 256, 1000, 500, start["params"]["user_embedding"].shape[0] - 1,
+                               rows_i - 1, seed=10)
+        negs = [rng.integers(0, 500, 64) for _ in batches]
+        ends, losses = {}, {}
+        for dev in ("cuda", "cpu"):
+            state = bridge.state_from_numpy(start, device=dev)
+            step = make_sparse_step_fn(cfg, make_optimizer(cfg.training), num_items=500)
+            losses[dev] = []
+            for b, neg in zip(batches, negs):
+                tb = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+                state, m = step(state, tb, None, torch.as_tensor(log_q, device=dev),
+                                neg_ids=torch.as_tensor(neg, device=dev))
+                losses[dev].append(float(m["loss"]))
+            ends[dev] = bridge.state_to_numpy(state)
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4, err_msg=mode)
+        for name in ("user_embedding", "item_embedding"):
+            np.testing.assert_allclose(ends["cuda"]["params"][name], ends["cpu"]["params"][name],
+                                       **STATE_TOL, err_msg=f"{mode} {name}")
+            np.testing.assert_allclose(ends["cuda"]["table_state"][name]["moments"],
+                                       ends["cpu"]["table_state"][name]["moments"],
+                                       **STATE_TOL, err_msg=f"{mode} {name} moments")
+        log(f"  {mode}, 3 steps with the same negatives: loss cuda {losses['cuda']} cpu "
+            f"{losses['cpu']}; card = CPU within the stated tolerances")
+
+    cfg = Config().with_overrides({**SAMPLING_SMALL, "retrieval.candidate_sampling": "mixed",
+                                   "training.warmup_steps": 3, "training.decay_steps": 10})
+    start = bridge.state_to_numpy(init_train_state(cfg, make_optimizer(cfg.training), 1000, 500,
+                                                   device="cpu"))
+    steps = 9
+    users, items = rng.integers(0, 1000, 256 * steps), rng.integers(0, 500, 256 * steps)
+    log_q = np.log(rng.dirichlet(np.ones(501)) + 1e-9).astype(np.float32)
+    perm = rng.permutation(256 * steps)
+    runs = {}
+    for capture in (True, False):
+        state = bridge.state_from_numpy(start, device="cuda")
+        ds = DeviceDataset(users, items, 256, device="cuda")
+        prog = make_epoch_fn(cfg, make_optimizer(cfg.training), steps, num_items=500,
+                             device="cuda", capture=capture)
+        kernels.reset_launch_counts()
+        prog.begin_epoch(state, ds.columns, 0, torch.as_tensor(log_q, device="cuda"), perm=perm)
+        moments = state.table_state["item_embedding"]["moments"]
+        positives = ds.columns["item_idx"].cpu().numpy()[perm].reshape(steps, 256)
+        sampled = []
+        for i in range(steps):
+            before = moments.clone()
+            prog.step()
+            changed = torch.nonzero((moments != before).any(dim=1)).flatten().cpu().numpy()
+            sampled.append(set(changed.tolist()) - set(positives[i].tolist()))
+        state, m = prog.end_epoch()
+        runs[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
+                         {w.__name__: w.launches for w in kernels.WRAPPERS}, sampled)
+    graph, eager = runs[True], runs[False]
+    replays = graph[3][2:]  # steps 3.. are the capture's replay and the replays
+    if not all(replays) or replays[1] == replays[2]:
+        raise RuntimeError(f"mixed graph epoch: replays 2 and 3 sampled {replays[1:3]}")
+    if any(graph[2].values()):
+        raise RuntimeError(f"mixed graph epoch launched fused-loss kernels: {graph[2]}")
+    np.testing.assert_allclose([graph[0][k] for k in sorted(eager[0])],
+                               [eager[0][k] for k in sorted(eager[0])], rtol=1e-4,
+                               err_msg="mixed graph vs eager: epoch metrics")
+    for part in ("params", "table_state", "opt_state"):
+        for x, y in zip(tree_leaves(graph[1][part]), tree_leaves(eager[1][part])):
+            np.testing.assert_allclose(x, y, **STATE_TOL, err_msg=f"mixed graph vs eager: {part}")
+    log(f"  mixed epoch ({steps} steps, 64 negatives): metrics graph {graph[0]}, eager "
+        f"{eager[0]}; graph = eager within the stated tolerances; item rows sampled by "
+        f"replays 2 and 3: {len(replays[1])} and {len(replays[2])}, "
+        f"{len(replays[1] & replays[2])} in common; fused-loss launches {graph[2]}")
+
+
 def run_main_path():
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.models.two_tower import dead_row
@@ -485,14 +612,16 @@ def profile_steps(step, state, batches, gen, n: int = 5) -> float:
 GRAPH_STEPS = 32  # steps of the graph-timing epochs (25 timed replays fit in one)
 
 
-def time_graph_step(main, eager_ms: float, eager_device_ms: float, card: str) -> dict:
+def time_graph_step(main, launches_a_step: int = 1) -> dict:
     """The main-path step replayed from a CUDA graph: the device loop's
     epoch (training/device_loop.py) at the main path's shape and state, over
     random columns on the card. Launch counts over a whole epoch (two
-    warm-up steps, the capture, the replays) must equal its steps; then the
-    device ms of 25 single replays (CUDA events around each), the wall ms a
-    step over them, and a profile of 5 replays whose kernel names must count
-    one launch of each kernel a replay."""
+    warm-up steps, the capture, the replays) must equal its steps times
+    ``launches_a_step`` (0 for a step that runs no fused-loss kernel); then
+    the device ms of 25 single replays (CUDA events around each), the wall
+    ms a step over them, and a profile of 5 replays whose kernel names must
+    count ``launches_a_step`` launches of each kernel a replay, with the
+    device time by kind of kernel."""
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
@@ -507,11 +636,12 @@ def time_graph_step(main, eager_ms: float, eager_device_ms: float, card: str) ->
     state, m = prog(state, ds.columns, 0, lq)
     loss = float(m["loss"])
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    if any(v != GRAPH_STEPS for v in launches.values()) or not math.isfinite(loss):
-        raise RuntimeError(f"graph epoch: launches {launches} != {GRAPH_STEPS} steps, "
-                           f"loss {loss}")
+    want = GRAPH_STEPS * launches_a_step
+    if any(v != want for v in launches.values()) or not math.isfinite(loss):
+        raise RuntimeError(f"graph epoch: launches {launches} != {want} "
+                           f"({GRAPH_STEPS} steps), loss {loss}")
     prog.begin_epoch(state, ds.columns, 1, lq)
-    times = []
+    events = []
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(25):
@@ -520,36 +650,55 @@ def time_graph_step(main, eager_ms: float, eager_device_ms: float, card: str) ->
         start.record()
         prog.step()
         end.record()
-        times.append((start, end))
+        events.append((start, end))
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3 / 25
-    replay_ms = statistics.median(a.elapsed_time(b) for a, b in times)
+    replay_ms = statistics.median(a.elapsed_time(b) for a, b in events)
     for _ in range(GRAPH_STEPS - 25):
         prog.step()
     state, _ = prog.end_epoch()
     prog.begin_epoch(state, ds.columns, 2, lq)
-    busy_ms, counts = profile_device(lambda i: prog.step(), 5, "replay")
+    busy_ms, counts, times = profile_device(lambda i: prog.step(), 5, "replay")
     for _ in range(GRAPH_STEPS - 5):
         prog.step()
     prog.end_epoch()
     by_kernel = {fn: sum(c for k, c in counts.items() if fn in k)
                  for fn in ("fused_loss_fwd_kernel", "fused_loss_bwd_du_kernel",
                             "fused_loss_bwd_dv_kernel")}
-    if any(c != 5 for c in by_kernel.values()):
+    if any(c != 5 * launches_a_step for c in by_kernel.values()):
         raise RuntimeError(f"profiler: kernel launches over 5 replays {by_kernel}")
+    kinds = by_kind(times)
     log(f"  graph epoch: {GRAPH_STEPS} steps, loss {loss:.4f}, launches {launches} "
-        f"(one a step); profiler over 5 replays: {by_kernel} launches")
+        f"({launches_a_step} a step); profiler over 5 replays: {by_kernel} launches")
     log(f"  replayed step: median {replay_ms:.4f} ms of 25 replays (CUDA events), wall "
-        f"{wall_ms:.4f} ms a step, {MAIN_B / replay_ms * 1e3:.1f} examples/s; eager step: "
-        f"median {eager_ms:.4f} ms, device time {eager_device_ms:.4f} ms a step ({card})")
-    return {"replay_ms": replay_ms, "wall_ms": wall_ms, "replay_device_ms": busy_ms}
+        f"{wall_ms:.4f} ms a step, {MAIN_B / replay_ms * 1e3:.1f} examples/s; device ms a "
+        f"replay by kind {json.dumps(kinds)}")
+    return {"replay_ms": replay_ms, "wall_ms": wall_ms, "replay_device_ms": busy_ms,
+            "launches": launches, "by_kind": kinds}
 
 
-def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int]]:
+MIXED = {"retrieval.candidate_sampling": "mixed", "retrieval.num_negatives": 2048}
+
+
+def time_mixed_step(main, in_batch: dict, card: str) -> dict:
+    """Phase 5's replayed step with mixed sampling (``MIXED``: the 4,096
+    in-batch columns plus 2,048 shared uniform negatives, the per-device
+    candidate set of configs/pod_571m.yaml), on phase 5's state: no
+    fused-loss kernel runs (the counts and the profiler read 0)."""
+    cfg, opt, state, log_q = main
+    got = time_graph_step((cfg.with_overrides(MIXED), opt, state, log_q), launches_a_step=0)
+    log(f"  mixed replay {got['replay_ms']:.4f} ms against the in-batch replay "
+        f"{in_batch['replay_ms']:.4f} ms ({got['replay_ms'] / in_batch['replay_ms']:.3f}x); "
+        f"fused-loss launches {got['launches']} (mixed runs none; {card})")
+    return got
+
+
+def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int], dict[str, float]]:
     """Device time by kernel over ``n`` calls ``fn(i)`` (torch.profiler), and
     the device's busy share of the window's wall time (the profiler's own
     cost inflates the wall time, so the share is a lower bound). Returns the
-    device ms a call and the count of each device event by name."""
+    device ms a call, the count of each device event by name and each
+    name's device ms a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -569,7 +718,29 @@ def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int]]:
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"    {e.self_device_time_total / 1e3 / n:9.4f} ms/{per}  x{e.count / n:5.1f}  "
             f"{e.key[:90]}")
-    return busy_ms / n, {e.key: e.count for e in device}
+    return (busy_ms / n, {e.key: e.count for e in device},
+            {e.key: e.self_device_time_total / 1e3 / n for e in device})
+
+
+# Device time by kind: the first pattern that matches a kernel's name.
+KINDS = [
+    ("fused loss", r"fused_loss"),
+    ("GEMM", r"gemm|xmma|cutlass|gemv|Kernel2"),
+    ("sort", r"sort|radix"),
+    ("reduction", r"reduce|Reduce"),
+    ("gather/scatter/index", r"index|scatter|gather|Index"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+    ("copy/memset", r"Memcpy|Memset|copy"),
+]
+
+
+def by_kind(times: dict[str, float]) -> dict[str, float]:
+    """Device ms a call summed by kind of kernel (``KINDS``, else "other")."""
+    out: dict[str, float] = {}
+    for name, ms in times.items():
+        kind = next((k for k, pat in KINDS if re.search(pat, name)), "other")
+        out[kind] = out.get(kind, 0.0) + ms
+    return out
 
 
 SMALL_DATA = ["--synthetic", "--synthetic-users", "200", "--synthetic-items", "100",
@@ -947,6 +1118,122 @@ def run_prepared_slice(card: str):
     log(f"steady_examples_per_sec prepared dir {summary['steady_examples_per_sec']}, "
         f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
     return row_launches(launches)
+
+
+# The config2 oracle corpus, its prepared artifact and its exact ceiling are
+# deterministic numpy: the JAX package's record of its config2 run
+# (benchmarks/results/oracle_parity_config2.json: the generator's stats,
+# the artifact, the temporal split, the ceiling and the plug-in skyline on
+# the test split), which a CPU run of the JAX package matches in every
+# recall@k and median rank, and in ndcg@k and mrr within 6e-8.
+ORACLE_GENERATOR = {"num_interactions": 1_000_000, "items_touched": 98_859,
+                    "rating_mean": 4.230074}
+ORACLE_ARTIFACT = {"num_interactions": 889_348, "num_users": 5_000, "num_items": 70_076}
+ORACLE_SPLIT = (711_478, 88_934, 88_936)
+ORACLE_CEILING = {
+    "recall@1": 0.005329675272105784, "ndcg@1": 0.005329675272105784,
+    "recall@5": 0.0187100836556625, "ndcg@5": 0.011980922999486466,
+    "recall@10": 0.030021588558064225, "ndcg@10": 0.015607967808964795,
+    "recall@20": 0.04657281640730413, "ndcg@20": 0.019770211604705844,
+    "recall@50": 0.07994512908158675, "ndcg@50": 0.026345507469962025,
+    "recall@100": 0.11882702167851039, "ndcg@100": 0.03262160028594697,
+    "mrr": 0.013976229615773827,
+}
+ORACLE_PLUGIN = {
+    "recall@1": 0.00539713951605649, "ndcg@1": 0.00539713951605649,
+    "recall@5": 0.01805792929747234, "ndcg@5": 0.011689366446483072,
+    "recall@10": 0.029032112980120536, "ndcg@10": 0.015206180911518874,
+    "recall@20": 0.044998650715120984, "ndcg@20": 0.019224272961800213,
+    "recall@50": 0.07753890438067824, "ndcg@50": 0.025648441210227885,
+    "recall@100": 0.11423945308986237, "ndcg@100": 0.031573458807255726,
+    "mrr": 0.01366967643753487,
+}
+ORACLE_MEDIAN_RANKS = (1676, 1733)  # ceiling, plug-in
+# recall@k to one row of the 88,936 test rows; ndcg@k and mrr within 1e-6.
+ORACLE_RECALL_TOL, ORACLE_RANK_METRIC_TOL = 1.2e-5, 1e-6
+# The student's floor, on the ceiling's recall@10. The JAX package reached
+# 0.895 on a TPU (its record); on this artifact on a CPU its own train-model
+# and evaluate-model reach 0.8453 and 0.8315 (seeds 42 and 1), and the
+# port's students on the H100 spread over 0.81-0.86 with the seed and the
+# order of CUDA's atomic adds (tools/oracle_variants.py). The floor sits
+# under that spread and far above what a broken student reaches in the JAX
+# package's own sweep (dropout 0.1 for 0.25: 0.58; no log-Q: 0.09-0.28).
+ORACLE_MIN_FRACTION = 0.75
+
+
+def counting_runner(launches: dict):
+    """``tools.oracle_parity.in_process_runner`` that puts the train stage's
+    kernel launches (counts set to 0 just before, read just after) in
+    ``launches``."""
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.tools.oracle_parity import in_process_runner
+
+    def run(module: str, argv: list[str]) -> str:
+        if not module.endswith(".train"):
+            return in_process_runner(module, argv)
+        kernels.reset_launch_counts()
+        out = in_process_runner(module, argv)
+        launches.update({w.__name__: w.launches for w in kernels.WRAPPERS})
+        return out
+
+    return run
+
+
+def check_oracle_metrics(what: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], v) for k, v in want.items()
+           if abs(got[k] - v) > (ORACLE_RECALL_TOL if k.startswith("recall")
+                                 else ORACLE_RANK_METRIC_TOL)}
+    if bad or got.keys() != want.keys():
+        raise RuntimeError(f"oracle {what} off the JAX package's record: {bad}")
+
+
+def run_oracle_parity(card: str) -> dict:
+    """The oracle parity run at config2 on the card: the port's twin of the
+    JAX benchmark (tools/oracle_parity.py) with its stages in process. The
+    generator, artifact, split and ceiling are held to the JAX package's
+    record; the student trained on the device loop must reach
+    ``ORACLE_MIN_FRACTION`` of the ceiling's recall@10, and each fused-loss
+    kernel must launch once a train step."""
+    from twotower_tpu_torch.data.prepared import PreparedDataset
+    from twotower_tpu_torch.tools.oracle_parity import run_pipeline
+
+    work = fresh_dir(ROOT / "build" / "oracle_config2")
+    launches: dict = {}
+    report = run_pipeline("config2", work, device="cuda", runner=counting_runner(launches))
+    got_gen = {k: report["generator"][k] for k in ORACLE_GENERATOR}
+    got_art = {k: report["artifact"][k] for k in ORACLE_ARTIFACT}
+    rule = PreparedDataset(work / "prepared").temporal_rule(0.8, 0.1)
+    split = (rule.n_train, rule.n_val, rule.n_test)
+    if got_gen != ORACLE_GENERATOR or got_art != ORACLE_ARTIFACT or split != ORACLE_SPLIT:
+        raise RuntimeError(f"oracle corpus: generator {got_gen}, artifact {got_art}, split "
+                           f"{split}; the JAX package's record {ORACLE_GENERATOR}, "
+                           f"{ORACLE_ARTIFACT}, {ORACLE_SPLIT}")
+    ceiling = report["ceiling"]
+    check_oracle_metrics("ceiling", ceiling["metrics"], ORACLE_CEILING)
+    check_oracle_metrics("plug-in", ceiling["plugin_metrics"], ORACLE_PLUGIN)
+    medians = (ceiling["median_rank"], ceiling["plugin_median_rank"])
+    if ceiling["rows"] != ORACLE_SPLIT[2] or medians != ORACLE_MEDIAN_RANKS:
+        raise RuntimeError(f"oracle ceiling rows {ceiling['rows']}, median ranks {medians}")
+    steps = int(epoch_records(work / "ckpt")[-1]["step"])
+    if report["train"]["execution_rung"] != "device_loop":
+        raise RuntimeError(f"oracle train stage ran {report['train']['execution_rung']}")
+    if any(v != steps for v in launches.values()):
+        raise RuntimeError(f"oracle train stage: launches {launches} != {steps} steps")
+    fraction = report["ceiling_fraction"]["recall@10"]
+    log(f"  generator {got_gen}; artifact {got_art}; split {split}: the JAX package's record")
+    log(f"  ceiling recall@10 {ceiling['metrics']['recall@10']}, plug-in "
+        f"{ceiling['plugin_metrics']['recall@10']}, median ranks {medians}: within the stated "
+        "tolerances of the JAX package's record")
+    log(f"  train: {report['train']}; {steps} steps, launches {launches} (one a step)")
+    log(f"  student recall@10 {report['student']['metrics']['recall@10']}; ceiling fraction "
+        f"{json.dumps(report['ceiling_fraction'])}")
+    log(f"  plug-in fraction {json.dumps(report['plugin_fraction'])}")
+    log(f"  stage seconds {json.dumps({k: v['seconds'] for k, v in report['stages'].items()})} "
+        f"({card})")
+    if fraction < ORACLE_MIN_FRACTION:
+        raise RuntimeError(f"student reaches {fraction} of the ceiling's recall@10, under "
+                           f"{ORACLE_MIN_FRACTION}")
+    return {"launches": row_launches(launches), "report": report}
 
 
 # Serving: (label, serving.index_type, serving.corpus_dtype) of the four
@@ -1393,9 +1680,17 @@ def main() -> int:
     log("phase 4: small-input step, card against CPU")
     check_small_step()
 
+    log("phase 4b: uniform and mixed sampling, card against CPU, graph against eager")
+    check_sampling_small()
+
     log("phase 5: main path")
     launches, step_ms, step_device_ms, main = run_main_path()
-    graph = time_graph_step(main, step_ms, step_device_ms, card)
+    graph = time_graph_step(main)
+    log(f"  eager step: median {step_ms:.4f} ms, device time {step_device_ms:.4f} ms a step "
+        f"({card})")
+
+    log("phase 5b: mixed sampling at full width, replayed")
+    mixed = time_mixed_step(main, graph, card)
     del main
     torch.cuda.empty_cache()
 
@@ -1411,6 +1706,11 @@ def main() -> int:
     loop_launches = run_device_loop_slice(card, host_summary)
     run_prepared_slice(card)
 
+    log("phase 7c: oracle parity at config2 (generate, prepare, ceiling, train, evaluate)")
+    oracle = run_oracle_parity(card)
+    log(json.dumps({"oracle_parity": {k: oracle["report"][k] for k in (
+        "ceiling", "ceiling_fraction", "plugin_fraction", "stages", "train", "student")}}))
+
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
@@ -1425,11 +1725,13 @@ def main() -> int:
     for row in rows:
         row["launches_train_model"] = slice_launches[row["name"]]
         row["launches_device_loop"] = loop_launches[row["name"]]
+        row["launches_oracle_parity"] = oracle["launches"][row["name"]]
         row["launches_serve_model"] = serve_launches[names[row["name"]]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "
-        f"{graph['replay_ms']} ms, {MAIN_B / graph['replay_ms'] * 1e3:.1f} examples/s")
+        f"{graph['replay_ms']} ms, {MAIN_B / graph['replay_ms'] * 1e3:.1f} examples/s; mixed "
+        f"sampling replayed: {mixed['replay_ms']} ms")
     log(json.dumps({
         "ok": True,
         "device": {

@@ -62,7 +62,11 @@ def test_hygiene_check_sees_the_whole_package():
             "twotower_tpu_torch/data/prepared.py",
             "twotower_tpu_torch/data/streaming.py",
             "twotower_tpu_torch/data/prepare.py",
-            "twotower_tpu_torch/features/engineer.py"} <= names
+            "twotower_tpu_torch/features/engineer.py",
+            "twotower_tpu_torch/data/synthetic_scale.py",
+            "twotower_tpu_torch/evaluation/oracle.py",
+            "twotower_tpu_torch/tools/oracle_parity.py",
+            "twotower_tpu_torch/tools/oracle_variants.py"} <= names
 
 
 def _small():
@@ -128,6 +132,39 @@ def test_serving_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
             make()
     assert RetrievalIndex(cfg, params, 10, 10, device="cpu").corpus.device.type == "cpu"
     assert not any(tmp_path.iterdir())
+
+
+def test_oracle_entry_points_default_to_cuda_and_raise_without_it(no_cuda, tmp_path):
+    """The generator (unless ``--no-device``), the oracle CLI, the parity
+    and variants tools and the ranks all run on the card unless ``--device cpu`` or
+    ``device="cpu"`` is given; without a GPU they raise before any work,
+    and the device sampler has no fallback to numpy."""
+    from twotower_tpu_torch.data import synthetic_scale
+    from twotower_tpu_torch.evaluation import oracle
+    from twotower_tpu_torch.tools import oracle_parity, oracle_variants
+
+    gen = ["--output-dir", str(tmp_path / "gen"), "--interactions", "2000", "--users", "50",
+           "--items", "100", "--clusters", "4", "--latent-dim", "4", "--oracle"]
+    ranks = (lambda u: np.zeros((len(u), 2), np.float32), np.zeros(5, np.int32),
+             np.zeros(5, np.float32), np.arange(3), np.arange(3))
+    for make in (lambda: synthetic_scale.main(gen),
+                 lambda: synthetic_scale.generate_parquet(tmp_path / "g2", num_interactions=100,
+                                                          num_users=10, num_items=20,
+                                                          num_clusters=4, use_device=True),
+                 lambda: oracle.main(["--teacher", str(tmp_path / "t.npz"),
+                                      "--prepared-dir", str(tmp_path)]),
+                 lambda: oracle._structured_ranks(*ranks),
+                 lambda: oracle_parity.main(["--scale", "smoke",
+                                             "--work-dir", str(tmp_path / "w")]),
+                 lambda: oracle_variants.main(["--scale", "smoke",
+                                               "--work-dir", str(tmp_path / "v")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert not any(tmp_path.iterdir())  # each raised before any work
+    assert list(oracle._structured_ranks(*ranks, device="cpu")) == [0, 1, 2]  # all tied
+    assert synthetic_scale.main(gen + ["--no-device"]) == 0
+    assert synthetic_scale.main(gen + ["--device", "cpu", "--output-dir",
+                                       str(tmp_path / "cpu")]) == 0
 
 
 @pytest.fixture()

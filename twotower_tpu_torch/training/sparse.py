@@ -168,8 +168,9 @@ def sparse_table_updates(
 
 def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None):
     """Train step with sparse table updates: ``step(state, batch, rng,
-    log_q=None, clock=None)`` with ``batch`` a dict of tensors on the state's
-    device and ``rng`` a ``torch.Generator`` there (dropout masks).
+    log_q=None, clock=None, neg_ids=None)`` with ``batch`` a dict of tensors
+    on the state's device and ``rng`` a ``torch.Generator`` there (dropout
+    masks and sampled negatives; None: the device's default generator).
 
     ``clock``, a 0-d float32 tensor on the device holding the step count
     before this step, makes the step capturable in a CUDA graph: the
@@ -180,25 +181,34 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
 
     Differentiates the loss w.r.t. the gathered embedding rows (not the
     tables), applies the dense optimizer to the towers and lazy-Adam row
-    updates to the tables, all in place. ``in_batch`` candidate sampling
-    only in this port so far.
+    updates to the tables, all in place. Supports ``in_batch``, ``uniform``
+    and ``mixed`` candidate sampling (``num_items`` is required for the
+    latter two): those draw ``retrieval.num_negatives`` ids uniformly in
+    ``[0, num_items)`` from ``rng`` on the device each step, run their rows
+    through the item tower and update them with the positives' rows.
+    ``neg_ids`` hands the step its negative ids instead (the parity tests
+    pass the JAX package's threefry draw).
     """
     from twotower_tpu_torch.models import two_tower
     from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
-    from twotower_tpu_torch.ops.losses import l2_penalty
+    from twotower_tpu_torch.ops.losses import (
+        l2_penalty,
+        mixed_sampled_softmax_loss,
+        uniform_sampled_softmax_loss,
+    )
 
     mcfg = config.model
     rcfg = config.retrieval
-    if rcfg.candidate_sampling != "in_batch":
-        raise NotImplementedError(
-            f"{rcfg.candidate_sampling} candidate sampling is not ported yet "
-            "(ROADMAP.md, Queue 1: uniform and mixed sampling)"
-        )
     lr_fn = make_lr_fn(config.training)
+    mode = rcfg.candidate_sampling
+    sample_negs = mode in ("uniform", "mixed")
+    if sample_negs and num_items is None:
+        raise ValueError(f"{mode} candidate sampling needs num_items")
 
     def step(state: TrainState, batch: dict, rng: torch.Generator | None,
              log_q: torch.Tensor | None = None,
-             clock: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
+             clock: torch.Tensor | None = None,
+             neg_ids: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
         tables, dense = split_params(state.params)
         u_ids = batch["user_idx"]
         i_ids = batch["item_idx"]
@@ -207,6 +217,14 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
         diff = tree_map(lambda t: t.detach().requires_grad_(), dense)
         u_rows = tables["user_embedding"][u_ids].requires_grad_()
         i_rows = tables["item_embedding"][i_ids].requires_grad_()
+        rows = [u_rows, i_rows]
+        if sample_negs:
+            if neg_ids is None:
+                neg_ids = torch.randint(0, num_items, (rcfg.num_negatives,), generator=rng,
+                                        device=i_ids.device)
+            neg_ids = neg_ids.to(device=i_ids.device, dtype=i_ids.dtype)
+            neg_rows = tables["item_embedding"][neg_ids].requires_grad_()
+            rows.append(neg_rows)
         with torch.enable_grad():
             u_emb = two_tower.apply_user_tower(
                 diff, u_rows, mcfg, train=True, dropout_gen=rng
@@ -214,21 +232,34 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
             i_emb = two_tower.apply_item_tower(
                 diff, i_rows, mcfg, train=True, dropout_gen=rng
             )
-            loss, metrics = in_batch_softmax_loss_auto(
-                u_emb,
-                i_emb,
-                i_ids,
-                temperature=rcfg.temperature,
-                log_q=log_q if rcfg.logq_correction else None,
-                weights=batch.get("weight"),
-            )
+            weights = batch.get("weight")
+            lq = log_q if rcfg.logq_correction else None
+            if sample_negs:
+                neg_emb = two_tower.apply_item_tower(
+                    diff, neg_rows, mcfg, train=True, dropout_gen=rng
+                )
+            if mode == "uniform":
+                loss, metrics = uniform_sampled_softmax_loss(
+                    u_emb, i_emb, neg_emb, temperature=rcfg.temperature, weights=weights,
+                    pos_idx=i_ids, neg_idx=neg_ids,
+                )
+            elif mode == "mixed":
+                loss, metrics = mixed_sampled_softmax_loss(
+                    u_emb, i_emb, i_ids, neg_emb, neg_ids, temperature=rcfg.temperature,
+                    log_q=lq, num_items=num_items, weights=weights,
+                )
+            else:
+                loss, metrics = in_batch_softmax_loss_auto(
+                    u_emb, i_emb, i_ids, temperature=rcfg.temperature, log_q=lq,
+                    weights=weights,
+                )
             if mcfg.l2_regularization > 0:
                 reg = l2_penalty(diff, [u_rows, i_rows])
                 loss = loss + mcfg.l2_regularization * reg
             leaves = tree_leaves(diff)
-            *dense_grads, u_grad, i_grad = torch.autograd.grad(
-                loss, [*leaves, u_rows, i_rows]
-            )
+            grads = torch.autograd.grad(loss, [*leaves, *rows])
+        dense_grads = list(grads[: len(leaves)])
+        u_grad, i_grad, *neg_grad = grads[len(leaves):]
         if clock is None:
             lr, step_num = lr_fn(state.step), state.step + 1
         else:
@@ -238,10 +269,14 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
             dense, dense_grads, state.opt_state, clock=clock, lr=None if clock is None else lr
         )
 
+        if sample_negs:
+            i_ids, i_grad = torch.cat([i_ids, neg_ids]), torch.cat([i_grad, *neg_grad])
         pre = {}
         if "u_targets" in batch:
             pre["user_embedding"] = (batch["u_targets"], batch["u_seg"], batch["u_valid"])
-        if "i_targets" in batch:
+        # Host dedup of the item table only without sampled negatives: the
+        # host never sees the ids drawn on the device.
+        if "i_targets" in batch and not sample_negs:
             pre["item_embedding"] = (batch["i_targets"], batch["i_seg"], batch["i_valid"])
         tbl_norm_sq = sparse_table_updates(
             tables,
