@@ -33,6 +33,22 @@
    rtol 1e-4, state rtol 1e-4 / atol 1e-5), where replays 2 and 3 must
    update different sampled item rows (outside their positives), and no
    fused-loss kernel runs.
+4c. The optimizers and the dense step, small (phase 4b's sizes): three
+   in_batch steps of the dense step (training/loop.py::make_step_fn) with
+   adam and sparse_table_updates=false, adamw with weight decay 0.01 under
+   warmup 2 + cosine 5, adagrad, sgd and adam with weight decay 0.01, and
+   of the dense adam step under uniform and mixed sampling with the same
+   negative ids on both devices, each on the card against the CPU from one
+   state (losses rtol 1e-4; state rtol 1e-4 / atol 1e-5, except elements
+   whose gradient into the optimizer cancelled to under 1e-6, non-zero,
+   where Adam's update turns on the last bits: held within lr a step);
+   each kernel launched once an in_batch step, none under sampling. Then a
+   9-step dense adamw epoch captured and replayed against it eager on the
+   card (metrics rtol 1e-4, state as above, launches = steps).
+4d. The hashed text tower, small (4,096 buckets, 16 tokens an item, a
+   ragged PAD tail a row): three steps of the sparse text step, the dense
+   text step and the sparse mixed text step, card against CPU (the same
+   checks); a 9-step sparse text epoch graph against eager.
 5. Main path: the default model (embedding 128, towers [512,256,128], bf16
    compute, dropout 0.1, in-batch softmax with log q, lazy-Adam tables, host
    dedup) at batch 4096 over 1M users x 500k items, through
@@ -51,12 +67,25 @@
    2,048 negatives (configs/pod_571m.yaml's per-device candidate set) on
    phase 5's state: launch counts 0 over the epoch and in the profile; its
    replay ms beside the in-batch replay's, and its device time by kind.
+5c. The dense step at full width: phase 5's model, batch, tables and log
+   q with training.sparse_table_updates=false. From one fresh state, one
+   batch and one dropout generator state, the first dense step equals the
+   first sparse step (every parameter within 1e-6, the loss rtol 1e-5; one
+   launch of each kernel a step); then the dense adam step and the dense
+   adamw step (weight decay 0.01) replayed as in phase 5: launches = steps,
+   replay ms, device ms by kind, the epoch's peak device memory.
+5d. The text step at full width: phase 5's model with model.text_buckets
+   65536 and model.text_tokens 32 (HashedNgramEncoder's defaults) over
+   [500k, 32] item tokens drawn on the card with a ragged PAD tail a row:
+   two eager sparse steps (one launch of each kernel a step), then
+   replayed as in phase 5.
 6. Card against CPU, small: the train-model and evaluate-model CLIs, in
    process through main(argv), at the CLI tests' sizes (200 users, 100
    items, 5000 interactions, embedding 16, towers [32,16], batch 64,
    float32 compute, dropout 0, two epochs), once with --device cuda and
    once with --device cpu: per-epoch losses rtol 1e-4; validation and test
-   metrics within one rank flip (1/rows). Then topk_mips_twopass on the
+   metrics within one rank flip (1/rows). Three runs: sparse adam,
+   --synthetic-text (512 buckets, 8 tokens), and adamw with weight decay. Then topk_mips_twopass on the
    card against one full torch.topk of the whole [B, N] score matrix at
    B=4096, N=100,000, D=128, k=100: ids equal except between exactly tied
    scores, scores rtol 1e-6.
@@ -99,6 +128,15 @@
    ceiling fraction of recall@10 at least ORACLE_MIN_FRACTION. Prints every
    metric's fraction and each stage's seconds as one {"oracle_parity": ...}
    JSON line.
+7d. The text tower end to end at the full model width: train-model
+   --synthetic-text --override model.text_buckets=65536 on the device loop
+   (--synthetic-users 50000 --synthetic-items 25000
+   --synthetic-interactions 1000000: the draw makes one Python string a row,
+   so its size is cut to some 30 s of host time), evaluate-model on
+   its checkpoint with phase 7's checks (launches = steps), then
+   RetrievalIndex.from_checkpoint over item_tokens.npz: tpu_mips_exact equal
+   to the Evaluator's search (with the same tokens) bit for bit, and the
+   reduced-precision corpora's recall@100 (bfloat16 at least 0.95).
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -142,8 +180,9 @@
    TFLOP/s (3x the flops);
    "bound_route" names the one taken and "share_of_bound" is bound / ms.
    Each row also carries its launches in phase 7's train-model run, in
-   phase 7b(b)'s device-loop run, in phase 7c's train stage and in phase
-   8's serving (0).
+   phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
+   serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
+   replayed text epoch and in phase 7d's train-model run.
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -552,6 +591,205 @@ def check_sampling_small():
         f"{len(replays[1] & replays[2])} in common; fused-loss launches {graph[2]}")
 
 
+# Phase 4c: the optimizers that leave the sparse path, each on the dense step.
+DENSE_VARIANTS = {
+    "adam, sparse_table_updates=false": {"training.sparse_table_updates": False},
+    "adamw, weight decay 0.01, warmup 2 + cosine 5": {
+        "training.optimizer": "adamw", "training.weight_decay": 0.01,
+        "training.warmup_steps": 2, "training.decay_steps": 5},
+    "adagrad": {"training.optimizer": "adagrad"},
+    "sgd": {"training.optimizer": "sgd", "training.learning_rate": 0.05},
+    "adam, weight decay 0.01": {"training.weight_decay": 0.01},
+}
+# Phase 4d: the hashed text tower at a small size.
+TEXT_SMALL = {"model.text_buckets": 4096, "model.text_tokens": 16}
+
+
+def ragged_tokens(rng, items: int, buckets: int, width: int) -> np.ndarray:
+    """``[items, width]`` token ids in [1, buckets) with a ragged PAD (0) tail
+    a row, some rows all PAD."""
+    tok = rng.integers(1, buckets, (items, width)).astype(np.int32)
+    tok[np.arange(width)[None, :] >= rng.integers(0, width + 1, (items, 1))] = 0
+    return tok
+
+
+def cancelled_masks(opt) -> dict:
+    """Per parameter (by data pointer), the elements whose gradient fed to
+    the optimizer (after coupled weight decay) was non-zero but under 1e-6
+    in some step. There Adam's m / (sqrt(v) + eps), eps 1e-8, is decided by
+    the gradient's last float32 bits, which two devices' summation orders
+    set differently: such an element's update may differ by up to lr a
+    step, so it is held to that."""
+    masks = {}
+    coupled = opt._coupled
+
+    def record(g, p):
+        g = coupled(g, p)
+        small = (g.abs() < 1e-6) & (g != 0)
+        masks[p.data_ptr()] = masks.get(p.data_ptr(), torch.zeros_like(small)) | small
+        return g
+
+    opt._coupled = record
+    return masks
+
+
+def assert_state_close(got: dict, ref: dict, ref_state, masks: dict, lr_steps: float, what: str):
+    """Two numpy train states within STATE_TOL; the params' elements in
+    ``masks`` (keyed by ``ref_state``'s tensors) within ``lr_steps``."""
+    ptrs = [t.data_ptr() for t in tree_leaves(ref_state.params)]
+    for part in ("params", "table_state", "opt_state"):
+        a, b = got[part], ref[part]
+        if b is None:
+            if a is not None:
+                raise RuntimeError(f"{what}: {part} is None on one side only")
+            continue
+        for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b))):
+            mask = masks.get(ptrs[i]) if part == "params" else None
+            if mask is not None and mask.any():
+                mask = mask.cpu().numpy()
+                np.testing.assert_allclose(x[mask], y[mask], rtol=0, atol=lr_steps,
+                                           err_msg=f"{what}: {part}, cancelled gradients")
+                x, y = x[~mask], y[~mask]
+            np.testing.assert_allclose(x, y, **STATE_TOL, err_msg=f"{what}: {part}")
+
+
+def steps_card_vs_cpu(cfg, what: str, rng, *, negs: bool = False, tokens=None) -> dict:
+    """Three train steps (``make_raw_step``: sparse or dense as the config
+    says) from one state on the card and on the CPU, the same batches,
+    negatives (``negs``) and item tokens on both: losses rtol 1e-4, the
+    state within ``assert_state_close``. Returns the card's launch counts
+    over the three steps."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer
+    from twotower_tpu_torch.training.loop import make_raw_step
+
+    start = bridge.state_to_numpy(init_train_state(cfg, make_optimizer(cfg.training), 1000, 500,
+                                                   device="cpu"))
+    rows_u = start["params"]["user_embedding"].shape[0]
+    rows_i = start["params"]["item_embedding"].shape[0]
+    log_q = np.log(rng.dirichlet(np.ones(rows_i)) + 1e-9).astype(np.float32)
+    batches = host_batches(3, 256, 1000, 500, rows_u - 1, rows_i - 1, seed=int(rng.integers(99)))
+    neg_ids = [rng.integers(0, 500, cfg.retrieval.num_negatives) if negs else None
+               for _ in batches]
+    ends, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = bridge.state_from_numpy(start, device=dev)
+        opt = make_optimizer(cfg.training)
+        masks = cancelled_masks(opt)
+        step = make_raw_step(cfg, opt, num_items=500)
+        lq = torch.as_tensor(log_q, device=dev)
+        tok = None if tokens is None else torch.as_tensor(tokens, device=dev)
+        kernels.reset_launch_counts()
+        losses[dev] = []
+        for b, neg in zip(batches, neg_ids):
+            tb = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            state, m = step(state, tb, None, lq, tok,
+                            neg_ids=None if neg is None else torch.as_tensor(neg, device=dev))
+            losses[dev].append(float(m["loss"]))
+        if dev == "cuda":
+            launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        ends[dev] = (bridge.state_to_numpy(state), state, masks)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4, err_msg=what)
+    (got, _, _), (ref, ref_state, masks) = ends["cuda"], ends["cpu"]
+    assert_state_close(got, ref, ref_state, masks, 3 * cfg.training.learning_rate, what)
+    cancelled = sum(int(m.sum()) for m in masks.values())
+    log(f"  {what}: 3 steps, loss cuda {losses['cuda']} cpu {losses['cpu']}; card = CPU within "
+        f"the stated tolerances ({cancelled} elements with a cancelled gradient); launches "
+        f"{launches}")
+    return launches
+
+
+def epoch_graph_vs_eager(cfg, what: str, rng, tokens=None) -> None:
+    """A 9-step device-loop epoch captured and replayed against the same
+    epoch eager on the card, one state and one permutation: metrics rtol
+    1e-4, state within ``assert_state_close``; the captured run launches
+    each fused-loss kernel once a step."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
+
+    start = bridge.state_to_numpy(init_train_state(cfg, make_optimizer(cfg.training), 1000, 500,
+                                                   device="cpu"))
+    steps = 9
+    users, items = rng.integers(0, 1000, 256 * steps), rng.integers(0, 500, 256 * steps)
+    log_q = torch.as_tensor(np.log(rng.dirichlet(np.ones(501)) + 1e-9).astype(np.float32),
+                            device="cuda")
+    perm = rng.permutation(256 * steps)
+    tok = None if tokens is None else torch.as_tensor(tokens, device="cuda")
+    runs = {}
+    for capture in (True, False):
+        state = bridge.state_from_numpy(start, device="cuda")
+        opt = make_optimizer(cfg.training)
+        masks = cancelled_masks(opt)
+        ds = DeviceDataset(users, items, 256, device="cuda")
+        prog = make_epoch_fn(cfg, opt, steps, num_items=500, device="cuda", capture=capture)
+        kernels.reset_launch_counts()
+        state, m = prog(state, ds.columns, 0, log_q, tok, perm=perm)
+        runs[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
+                         {w.__name__: w.launches for w in kernels.WRAPPERS}, state, masks)
+    graph, eager = runs[True], runs[False]
+    if any(v != steps for v in graph[2].values()):
+        raise RuntimeError(f"{what}: graph epoch launches {graph[2]} != {steps} steps")
+    np.testing.assert_allclose([graph[0][k] for k in sorted(eager[0])],
+                               [eager[0][k] for k in sorted(eager[0])], rtol=1e-4,
+                               err_msg=f"{what} graph vs eager: epoch metrics")
+    assert_state_close(graph[1], eager[1], eager[3], eager[4],
+                       steps * cfg.training.learning_rate, f"{what} graph vs eager")
+    log(f"  {what}, a {steps}-step epoch: metrics graph {graph[0]}, eager {eager[0]}; graph = "
+        f"eager within the stated tolerances; launches {graph[2]} (one a step)")
+
+
+def check_dense_small() -> None:
+    """Phase 4c: each optimizer on the dense step (in_batch), then the dense
+    adam step under uniform and mixed sampling, card against CPU; then a
+    dense epoch (adamw, weight decay, schedule) graph against eager."""
+    from twotower_tpu_torch.config import Config
+
+    rng = np.random.default_rng(13)
+    for what, over in DENSE_VARIANTS.items():
+        cfg = Config().with_overrides({**SAMPLING_SMALL, **over})
+        if cfg.training.effective_sparse_updates():
+            raise RuntimeError(f"{what} takes the sparse step")
+        launches = steps_card_vs_cpu(cfg, f"dense {what}", rng)
+        if any(v != 3 for v in launches.values()):
+            raise RuntimeError(f"dense {what}: launches {launches} != 3 steps")
+    for mode in ("uniform", "mixed"):
+        cfg = Config().with_overrides({**SAMPLING_SMALL, "retrieval.candidate_sampling": mode,
+                                       "training.sparse_table_updates": False})
+        launches = steps_card_vs_cpu(cfg, f"dense adam, {mode}, the same negatives", rng,
+                                     negs=True)
+        if any(launches.values()):
+            raise RuntimeError(f"dense {mode} launched fused-loss kernels: {launches}")
+    cfg = Config().with_overrides(
+        {**SAMPLING_SMALL, **DENSE_VARIANTS["adamw, weight decay 0.01, warmup 2 + cosine 5"],
+         "training.decay_steps": 10})
+    epoch_graph_vs_eager(cfg, "dense adamw", rng)
+
+
+def check_text_small() -> None:
+    """Phase 4d: the text tower's sparse and dense steps (and the sparse
+    mixed step, the negatives' tokens too) card against CPU, then a sparse
+    text epoch graph against eager."""
+    from twotower_tpu_torch.config import Config
+
+    rng = np.random.default_rng(14)
+    tokens = ragged_tokens(rng, 500, TEXT_SMALL["model.text_buckets"],
+                           TEXT_SMALL["model.text_tokens"])
+    base = {**SAMPLING_SMALL, **TEXT_SMALL}
+    for what, over, negs in (("text, sparse", {}, False),
+                             ("text, dense", {"training.sparse_table_updates": False}, False),
+                             ("text, sparse mixed", {"retrieval.candidate_sampling": "mixed"},
+                              True)):
+        launches = steps_card_vs_cpu(Config().with_overrides({**base, **over}), what, rng,
+                                     negs=negs, tokens=tokens)
+        if any(v != (0 if negs else 3) for v in launches.values()):
+            raise RuntimeError(f"{what}: launches {launches}")
+    cfg = Config().with_overrides({**base, "training.warmup_steps": 3, "training.decay_steps": 10})
+    epoch_graph_vs_eager(cfg, "text, sparse", rng, tokens)
+
+
 def run_main_path():
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.models.two_tower import dead_row
@@ -612,7 +850,7 @@ def profile_steps(step, state, batches, gen, n: int = 5) -> float:
 GRAPH_STEPS = 32  # steps of the graph-timing epochs (25 timed replays fit in one)
 
 
-def time_graph_step(main, launches_a_step: int = 1) -> dict:
+def time_graph_step(main, launches_a_step: int = 1, item_tokens=None) -> dict:
     """The main-path step replayed from a CUDA graph: the device loop's
     epoch (training/device_loop.py) at the main path's shape and state, over
     random columns on the card. Launch counts over a whole epoch (two
@@ -621,7 +859,9 @@ def time_graph_step(main, launches_a_step: int = 1) -> dict:
     the device ms of 25 single replays (CUDA events around each), the wall
     ms a step over them, and a profile of 5 replays whose kernel names must
     count ``launches_a_step`` launches of each kernel a replay, with the
-    device time by kind of kernel."""
+    device time by kind of kernel, and the peak device memory over the
+    epoch (the capture's pool included). ``item_tokens``: the text tower's
+    ``[items, T]`` tokens on the card."""
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
@@ -632,15 +872,18 @@ def time_graph_step(main, launches_a_step: int = 1) -> dict:
                        device="cuda")
     lq = torch.as_tensor(log_q, device="cuda")
     prog = make_epoch_fn(cfg, opt, ds.num_steps, num_items=NUM_ITEMS, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    state, m = prog(state, ds.columns, 0, lq)
+    state, m = prog(state, ds.columns, 0, lq, item_tokens)
     loss = float(m["loss"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     want = GRAPH_STEPS * launches_a_step
     if any(v != want for v in launches.values()) or not math.isfinite(loss):
         raise RuntimeError(f"graph epoch: launches {launches} != {want} "
                            f"({GRAPH_STEPS} steps), loss {loss}")
-    prog.begin_epoch(state, ds.columns, 1, lq)
+    prog.begin_epoch(state, ds.columns, 1, lq, item_tokens)
     events = []
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -657,7 +900,7 @@ def time_graph_step(main, launches_a_step: int = 1) -> dict:
     for _ in range(GRAPH_STEPS - 25):
         prog.step()
     state, _ = prog.end_epoch()
-    prog.begin_epoch(state, ds.columns, 2, lq)
+    prog.begin_epoch(state, ds.columns, 2, lq, item_tokens)
     busy_ms, counts, times = profile_device(lambda i: prog.step(), 5, "replay")
     for _ in range(GRAPH_STEPS - 5):
         prog.step()
@@ -672,9 +915,10 @@ def time_graph_step(main, launches_a_step: int = 1) -> dict:
         f"({launches_a_step} a step); profiler over 5 replays: {by_kernel} launches")
     log(f"  replayed step: median {replay_ms:.4f} ms of 25 replays (CUDA events), wall "
         f"{wall_ms:.4f} ms a step, {MAIN_B / replay_ms * 1e3:.1f} examples/s; device ms a "
-        f"replay by kind {json.dumps(kinds)}")
+        f"replay by kind {json.dumps(kinds)}; peak device memory over the epoch "
+        f"{peak_gib:.3f} GiB")
     return {"replay_ms": replay_ms, "wall_ms": wall_ms, "replay_device_ms": busy_ms,
-            "launches": launches, "by_kind": kinds}
+            "launches": launches, "by_kind": kinds, "peak_gib": peak_gib}
 
 
 MIXED = {"retrieval.candidate_sampling": "mixed", "retrieval.num_negatives": 2048}
@@ -690,6 +934,116 @@ def time_mixed_step(main, in_batch: dict, card: str) -> dict:
     log(f"  mixed replay {got['replay_ms']:.4f} ms against the in-batch replay "
         f"{in_batch['replay_ms']:.4f} ms ({got['replay_ms'] / in_batch['replay_ms']:.3f}x); "
         f"fused-loss launches {got['launches']} (mixed runs none; {card})")
+    return got
+
+
+def run_dense_full(card: str) -> dict:
+    """Phase 5c: the dense step at the main path's width (phase 5's model,
+    batch, tables and log q, training.sparse_table_updates=false). From one
+    fresh state (one seed) and one batch, and one generator state for the
+    dropout masks, the first dense step equals the first sparse step (lazy
+    Adam is dense Adam at step 1): every parameter within 1e-6, the loss
+    within rtol 1e-5. Then the dense adam step, and the dense adamw step
+    (weight decay 0.01), replayed (``time_graph_step``)."""
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.models.two_tower import dead_row
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    cfg_s = Config().with_overrides({"training.batch_size": MAIN_B})
+    out = {}
+    firsts = {}
+    for name, cfg in (("sparse", cfg_s),
+                      ("dense", cfg_s.with_overrides({"training.sparse_table_updates": False}))):
+        opt = make_optimizer(cfg.training)
+        state = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS)
+        rows_i = state.params["item_embedding"].shape[0]
+        log_q = np.log(np.full(rows_i, 1.0 / NUM_ITEMS, np.float32))
+        batch = host_batches(1, MAIN_B, NUM_USERS, NUM_ITEMS,
+                             dead_row(state.params["user_embedding"]), rows_i - 1, seed=0)[0]
+        step = make_train_step(cfg, opt, log_q)
+        kernels.reset_launch_counts()
+        state, m = step(state, batch, torch.Generator(device="cuda").manual_seed(5))
+        loss = float(m["loss"])
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        if any(v != 1 for v in launches.values()):
+            raise RuntimeError(f"{name} first step: launches {launches}")
+        firsts[name] = (loss, state)
+        if name == "dense":
+            dense = (cfg, opt, state, log_q)
+    (loss_s, state_s), (loss_d, state_d) = firsts["sparse"], firsts["dense"]
+    if state_d.table_state is not None or state_s.table_state is None:
+        raise RuntimeError("the dense and sparse states have the wrong layouts")
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(tree_leaves(state_s.params), tree_leaves(state_d.params)))
+    if abs(loss_s - loss_d) > 1e-5 * abs(loss_s) or diff > 1e-6:
+        raise RuntimeError(f"first dense step != first sparse step: loss {loss_d} vs {loss_s}, "
+                           f"params differ by up to {diff}")
+    log(f"  first step from one state, batch and dropout generator: loss dense {loss_d} sparse "
+        f"{loss_s}; params differ by at most {diff} (gate 1e-6); one launch of each kernel in "
+        "each eager step")
+    del firsts, state_s
+    torch.cuda.empty_cache()
+    log("  dense adam, replayed:")
+    out["adam"] = time_graph_step(dense)
+    del dense, state_d
+    torch.cuda.empty_cache()
+    cfg_w = cfg_s.with_overrides({"training.optimizer": "adamw", "training.weight_decay": 0.01})
+    opt_w = make_optimizer(cfg_w.training)
+    state_w = init_train_state(cfg_w, opt_w, NUM_USERS, NUM_ITEMS)
+    log_q = np.log(np.full(state_w.params["item_embedding"].shape[0], 1.0 / NUM_ITEMS,
+                           np.float32))
+    log("  dense adamw (weight decay 0.01), replayed:")
+    out["adamw"] = time_graph_step((cfg_w, opt_w, state_w, log_q))
+    del state_w
+    torch.cuda.empty_cache()
+    log(f"  dense replay ms: adam {out['adam']['replay_ms']:.4f}, adamw "
+        f"{out['adamw']['replay_ms']:.4f} ({card})")
+    return out
+
+
+TEXT_FULL = {"model.text_buckets": 65536, "model.text_tokens": 32}  # HashedNgramEncoder's
+
+
+def run_text_full(card: str) -> dict:
+    """Phase 5d: the sparse step with the hashed text tower at the main
+    path's width (``TEXT_FULL``: 65,536 buckets, 32 tokens an item) over
+    ``[500k, 32]`` item tokens drawn on the card with a ragged PAD tail a
+    row: two eager steps (one launch of each kernel a step), then replayed
+    (``time_graph_step``)."""
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.models.two_tower import dead_row
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    cfg = Config().with_overrides({"training.batch_size": MAIN_B, **TEXT_FULL})
+    opt = make_optimizer(cfg.training)
+    state = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    width = TEXT_FULL["model.text_tokens"]
+    tokens = torch.randint(1, TEXT_FULL["model.text_buckets"], (NUM_ITEMS, width), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    lengths = torch.randint(0, width + 1, (NUM_ITEMS, 1), generator=gen, device="cuda")
+    tokens[torch.arange(width, device="cuda")[None, :] >= lengths] = 0
+    rows_i = state.params["item_embedding"].shape[0]
+    log_q = np.log(np.full(rows_i, 1.0 / NUM_ITEMS, np.float32))
+    step = make_train_step(cfg, opt, log_q, item_tokens=tokens)
+    batches = host_batches(2, MAIN_B, NUM_USERS, NUM_ITEMS,
+                           dead_row(state.params["user_embedding"]), rows_i - 1, seed=3)
+    kernels.reset_launch_counts()
+    for b in batches:
+        state, m = step(state, b, gen)
+    loss = float(m["loss"])
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    if any(v != len(batches) for v in launches.values()) or not math.isfinite(loss):
+        raise RuntimeError(f"text eager steps: launches {launches}, loss {loss}")
+    log(f"  text table {tuple(state.params['text_embedding'].shape)}, tokens "
+        f"{tuple(tokens.shape)} ({float((tokens != 0).float().mean()):.3f} not PAD); "
+        f"{len(batches)} eager steps, loss {loss:.4f}, launches {launches} (one a step)")
+    got = time_graph_step((cfg, opt, state, log_q), item_tokens=tokens)
+    log(f"  text replay {got['replay_ms']:.4f} ms ({card})")
+    del state, tokens
+    torch.cuda.empty_cache()
     return got
 
 
@@ -785,7 +1139,15 @@ def fresh_dir(path: Path) -> Path:
     return path
 
 
-def check_cli_card_vs_cpu():
+# Phase 6's runs: (label, extra train-model flags, extra overrides).
+CLI_VARIANTS = [
+    ("sparse adam", [], []),
+    ("--synthetic-text", ["--synthetic-text"], ["model.text_buckets=512", "model.text_tokens=8"]),
+    ("adamw", [], ["training.optimizer=adamw", "training.weight_decay=0.01"]),
+]
+
+
+def check_cli_card_vs_cpu(label: str = "sparse adam", flags=(), overrides=()):
     """The two CLIs on the card and on the CPU at the tests' sizes: per-epoch
     losses rtol 1e-4, val and test metrics within one rank flip."""
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
@@ -795,7 +1157,8 @@ def check_cli_card_vs_cpu():
     for dev in ("cuda", "cpu"):
         ckpt = fresh_dir(ROOT / "build" / "chip_smoke_cli" / dev)
         args = ["--device", dev, "--checkpoint-dir", str(ckpt)]
-        summary = run_cli(train_main, args + SMALL_DATA + SMALL_TRAIN)
+        summary = run_cli(train_main, args + SMALL_DATA + list(flags) + SMALL_TRAIN
+                          + list(overrides))
         evals = {sub: run_cli(eval_main, args + SMALL_DATA + ["--subset", sub])
                  for sub in ("val", "test")}
         got[dev] = (epoch_records(ckpt), summary, evals)
@@ -815,8 +1178,9 @@ def check_cli_card_vs_cpu():
         bad = {k: (a[k], b[k]) for k in b if abs(a[k] - b[k]) > flip}
         if bad:
             raise RuntimeError(f"{which}: card and CPU differ past one rank flip: {bad}")
-    log(f"  per-epoch loss cuda {[r['loss'] for r in rec_g]} cpu {[r['loss'] for r in rec_c]}; "
-        f"test recall@10 cuda {sum_g['test']['recall@10']} cpu {sum_c['test']['recall@10']}")
+    log(f"  {label}: per-epoch loss cuda {[r['loss'] for r in rec_g]} cpu "
+        f"{[r['loss'] for r in rec_c]}; test recall@10 cuda {sum_g['test']['recall@10']} cpu "
+        f"{sum_c['test']['recall@10']}")
 
 
 def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
@@ -903,7 +1267,8 @@ def evaluated_users(into: list):
         Evaluator.evaluate = orig
 
 
-def train_and_evaluate(ckpt: Path, train_data: list, eval_data: list, what: str):
+def train_and_evaluate(ckpt: Path, train_data: list, eval_data: list, what: str,
+                       overrides=()):
     """train-model then evaluate-model on its checkpoint, in process, on the
     card. Launch counts set to 0 just before train-model and read just
     after must equal its steps; finite losses; best val recall@10 at least
@@ -918,7 +1283,7 @@ def train_and_evaluate(ckpt: Path, train_data: list, eval_data: list, what: str)
     args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
     t0 = time.perf_counter()
     kernels.reset_launch_counts()
-    summary = run_cli(train_main, args + train_data + SLICE_TRAIN)
+    summary = run_cli(train_main, args + train_data + SLICE_TRAIN + list(overrides))
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     t_train = time.perf_counter() - t0
     records = epoch_records(ckpt)
@@ -1118,6 +1483,34 @@ def run_prepared_slice(card: str):
     log(f"steady_examples_per_sec prepared dir {summary['steady_examples_per_sec']}, "
         f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
     return row_launches(launches)
+
+
+# Phase 7d: --synthetic-text at the full model width. The draw makes one
+# Python string a row, so its size is cut to 1M interactions (50k users x
+# 25k items, the density of phase 7's draw), some 30 s of host time.
+TEXT_DATA = ["--synthetic", "--synthetic-users", "50000", "--synthetic-items", "25000",
+             "--synthetic-interactions", "1000000"]
+
+
+def run_text_slice(card: str) -> dict:
+    """Phase 7d: train-model --synthetic-text on the device loop with
+    model.text_buckets=65536 (the default model otherwise), evaluate-model
+    on its checkpoint (``train_and_evaluate``'s checks), then exact serving
+    through RetrievalIndex.from_checkpoint over item_tokens.npz equal to the
+    evaluation's search bit for bit (``check_serving_trained``)."""
+    ckpt = ROOT / "build" / "chip_smoke_text"
+    summary, launches, users, best = train_and_evaluate(
+        ckpt, TEXT_DATA + ["--synthetic-text", "--exec", "device-loop"], TEXT_DATA,
+        "text tower", overrides=["model.text_buckets=65536"])
+    with np.load(ckpt / "item_tokens.npz") as f:
+        tokens = f["tokens"]
+    if summary["execution_rung"] != "device_loop" or tokens.shape != (summary["num_items"], 32):
+        raise RuntimeError(f"text slice: rung {summary['execution_rung']}, tokens {tokens.shape}")
+    log(f"  item_tokens.npz {tokens.shape}, {float((tokens != 0).mean()):.3f} not PAD; "
+        f"steady_examples_per_sec {summary['steady_examples_per_sec']}, "
+        f"train_examples_per_sec {summary['train_examples_per_sec']} ({card})")
+    serving = check_serving_trained(ckpt, users, best)
+    return {"launches": row_launches(launches), "summary": summary, "serving": serving}
 
 
 # The config2 oracle corpus, its prepared artifact and its exact ceiling are
@@ -1407,11 +1800,13 @@ def check_serving_card_vs_cpu():
 
 
 def check_serving_trained(ckpt: Path, users: np.ndarray, best_step: int) -> dict:
-    """Serving part 2: the phase-7 checkpoint through
-    RetrievalIndex.from_checkpoint; the exact index against the Evaluator's
-    own search for ``users``, then each reduced-precision corpus's recall."""
+    """Serving part 2: a trained checkpoint (phase 7's; phase 7d's, with item
+    tokens) through RetrievalIndex.from_checkpoint; the exact index against
+    the Evaluator's own search for ``users``, then each reduced-precision
+    corpus's recall."""
     from twotower_tpu_torch.config import load_config_for_checkpoint
     from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.evaluation.evaluate import load_item_tokens
     from twotower_tpu_torch.models import two_tower
     from twotower_tpu_torch.ops.topk import topk_mips_twopass
     from twotower_tpu_torch.serving import RetrievalIndex
@@ -1421,7 +1816,8 @@ def check_serving_trained(ckpt: Path, users: np.ndarray, best_step: int) -> dict
         serving_config("tpu_mips_exact", "float32", base), ckpt, device="cuda")
     if exact.checkpoint_step != best_step:
         raise RuntimeError(f"served step {exact.checkpoint_step}, best step {best_step}")
-    ev = Evaluator(base, exact.num_items, batch_size=EVAL_B, device="cuda")
+    ev = Evaluator(base, exact.num_items, batch_size=EVAL_B,
+                   item_tokens=load_item_tokens(ckpt), device="cuda")
     with torch.no_grad():
         emb = two_tower.embed_users(exact.params, torch.as_tensor(users).cuda(), base.model)
         ref_v, ref_i = topk_mips_twopass(emb, ev._encode_corpus(exact.params), SERVE_K,
@@ -1683,6 +2079,12 @@ def main() -> int:
     log("phase 4b: uniform and mixed sampling, card against CPU, graph against eager")
     check_sampling_small()
 
+    log("phase 4c: the optimizers and the dense step, card against CPU, graph against eager")
+    check_dense_small()
+
+    log("phase 4d: the text tower, card against CPU, graph against eager")
+    check_text_small()
+
     log("phase 5: main path")
     launches, step_ms, step_device_ms, main = run_main_path()
     graph = time_graph_step(main)
@@ -1694,8 +2096,15 @@ def main() -> int:
     del main
     torch.cuda.empty_cache()
 
+    log("phase 5c: the dense step at full width")
+    dense = run_dense_full(card)
+
+    log("phase 5d: the text step at full width")
+    text = run_text_full(card)
+
     log("phase 6: train-model and evaluate-model, card against CPU, small")
-    check_cli_card_vs_cpu()
+    for variant in CLI_VARIANTS:
+        check_cli_card_vs_cpu(*variant)
     check_twopass()
 
     log("phase 7: train-model and evaluate-model at full width")
@@ -1710,6 +2119,9 @@ def main() -> int:
     oracle = run_oracle_parity(card)
     log(json.dumps({"oracle_parity": {k: oracle["report"][k] for k in (
         "ceiling", "ceiling_fraction", "plugin_fraction", "stages", "train", "student")}}))
+
+    log("phase 7d: train-model --synthetic-text, evaluate-model and exact serving")
+    text_slice = run_text_slice(card)
 
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
@@ -1727,11 +2139,16 @@ def main() -> int:
         row["launches_device_loop"] = loop_launches[row["name"]]
         row["launches_oracle_parity"] = oracle["launches"][row["name"]]
         row["launches_serve_model"] = serve_launches[names[row["name"]]]
+        row["launches_dense_step"] = dense["adam"]["launches"][names[row["name"]]]
+        row["launches_text_step"] = text["launches"][names[row["name"]]]
+        row["launches_text_train_model"] = text_slice["launches"][row["name"]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "
         f"{graph['replay_ms']} ms, {MAIN_B / graph['replay_ms'] * 1e3:.1f} examples/s; mixed "
-        f"sampling replayed: {mixed['replay_ms']} ms")
+        f"sampling replayed: {mixed['replay_ms']} ms; dense adam / adamw replayed: "
+        f"{dense['adam']['replay_ms']} / {dense['adamw']['replay_ms']} ms; text replayed: "
+        f"{text['replay_ms']} ms")
     log(json.dumps({
         "ok": True,
         "device": {

@@ -41,34 +41,71 @@ SMALL = {
 }
 
 
+def jax_opt_to_numpy(opt_state, step: int) -> dict:
+    """An optax state of the JAX package's ``make_optimizer`` chains ->
+    the bridge's ``{"count": int, <slots>}``: ``mu``/``nu`` from
+    ``ScaleByAdamState``, ``sum_of_squares`` from ``ScaleByRssState``; the
+    count from the adam or schedule state, else the train step (optax
+    keeps none for a constant-lr sgd or adagrad)."""
+    out: dict = {}
+
+    def walk(s):
+        if isinstance(s, optax.ScaleByAdamState):
+            out.update(count=int(s.count), mu=jax.device_get(s.mu), nu=jax.device_get(s.nu))
+        elif isinstance(s, optax.ScaleByRssState):
+            out["sum_of_squares"] = jax.device_get(s.sum_of_squares)
+        elif isinstance(s, optax.ScaleByScheduleState):
+            out.setdefault("count", int(s.count))
+        elif isinstance(s, tuple) and not isinstance(s, optax.EmptyState):
+            for x in s:
+                walk(x)
+
+    walk(opt_state)
+    out.setdefault("count", step)
+    return out
+
+
 def jax_state_to_numpy(state) -> dict:
-    """A sparse JAX ``TrainState`` (constant-lr ``optax.adam``) -> the
-    bridge's numpy layout."""
-    adam = state.opt_state[0]
+    """A JAX ``TrainState`` (sparse or dense, any optimizer of
+    ``make_optimizer``) -> the bridge's numpy layout."""
     return {
         "step": int(state.step),
         "params": jax.device_get(state.params),
-        "opt_state": {
-            "count": int(adam.count),
-            "mu": jax.device_get(adam.mu),
-            "nu": jax.device_get(adam.nu),
-        },
-        "table_state": jax.device_get(state.table_state),
+        "opt_state": jax_opt_to_numpy(state.opt_state, int(state.step)),
+        "table_state": (None if state.table_state is None
+                        else jax.device_get(state.table_state)),
     }
 
 
-def numpy_to_jax_state(tree: dict):
-    """The bridge's numpy layout -> a sparse JAX ``TrainState``."""
+def numpy_to_jax_state(tree: dict, optimizer=None):
+    """The bridge's numpy layout -> a JAX ``TrainState`` whose ``opt_state``
+    has the layout of ``optimizer`` (a JAX ``make_optimizer`` chain;
+    default the sparse path's constant-lr ``optax.adam``)."""
     put = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
     opt = tree["opt_state"]
-    adam = optax.ScaleByAdamState(
-        count=jnp.asarray(opt["count"], jnp.int32), mu=put(opt["mu"]), nu=put(opt["nu"])
-    )
+    count = jnp.asarray(opt["count"], jnp.int32)
+    params = put(tree["params"])
+    sparse = tree["table_state"] is not None
+    covered = ({k: v for k, v in params.items() if not k.endswith("_embedding")} if sparse
+               else params)
+    template = (optax.adam(1e-3) if optimizer is None else optimizer).init(covered)
+
+    def fill(s):
+        if isinstance(s, optax.ScaleByAdamState):
+            return optax.ScaleByAdamState(count=count, mu=put(opt["mu"]), nu=put(opt["nu"]))
+        if isinstance(s, optax.ScaleByRssState):
+            return optax.ScaleByRssState(sum_of_squares=put(opt["sum_of_squares"]))
+        if isinstance(s, optax.ScaleByScheduleState):
+            return optax.ScaleByScheduleState(count=count)
+        if isinstance(s, tuple) and not isinstance(s, optax.EmptyState):
+            return tuple(fill(x) for x in s)
+        return s
+
     return JaxTrainState(
         step=jnp.asarray(tree["step"], jnp.int32),
-        params=put(tree["params"]),
-        opt_state=(adam, optax.EmptyState()),
-        table_state=put(tree["table_state"]),
+        params=params,
+        opt_state=fill(template),
+        table_state=put(tree["table_state"]) if sparse else None,
     )
 
 

@@ -160,7 +160,7 @@ def test_missing_tracking_backend_raises(tmp_path, monkeypatch, kind):
 @pytest.mark.parametrize(
     "flag",
     [["--shard-input"], ["--stream-batches", "--shard-input"], ["--device-loop", "--mesh"],
-     ["--mesh"], ["--coordinator", "h:1"], ["--synthetic-text"],
+     ["--mesh"], ["--coordinator", "h:1"],
      ["--exec", "device-loop", "--coordinator", "h:1"]],
 )
 def test_unported_train_flags_exit_naming_roadmap(tmp_path, capsys, flag):

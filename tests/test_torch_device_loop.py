@@ -185,8 +185,10 @@ def test_unported_options_raise():
     cfg = Config().with_overrides(OVERRIDES)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         DeviceTrainer(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="text towers"):
-        DeviceTrainer(cfg, item_tokens=np.zeros((3, 2), np.int32), device="cpu")
+    # The text tower is ported: the tokens go to the device with the trainer.
+    text = cfg.with_overrides({"model.text_buckets": 64, "model.text_tokens": 2})
+    trainer = DeviceTrainer(text, item_tokens=np.zeros((3, 2), np.int32), device="cpu")
+    assert trainer.item_tokens.device.type == "cpu" and trainer.item_tokens.shape == (3, 2)
     with pytest.raises(ValueError, match="CUDA"):
         make_epoch_fn(cfg, make_optimizer(cfg.training), 3, device="cpu", capture=True)
     fn = make_epoch_fn(cfg, make_optimizer(cfg.training), 3, device="cpu")

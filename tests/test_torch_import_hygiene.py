@@ -4,8 +4,9 @@ its entry points run on the GPU unless the caller asks for the CPU by name
 (with no GPU they raise instead of falling back).
 
 Also the tests that need the card, marked ``cuda`` and skipped where no GPU
-is visible: the CUDA kernels against their plain versions, and a device-loop
-epoch captured as a CUDA graph against the same epoch eager. This file
+is visible: the CUDA kernels against their plain versions, and device-loop
+epochs (the sparse step, the dense step, the text tower) captured as a CUDA
+graph against the same epochs eager. This file
 imports no JAX, so it runs on a GPU machine that has none."""
 
 import ast
@@ -66,7 +67,9 @@ def test_hygiene_check_sees_the_whole_package():
             "twotower_tpu_torch/data/synthetic_scale.py",
             "twotower_tpu_torch/evaluation/oracle.py",
             "twotower_tpu_torch/tools/oracle_parity.py",
-            "twotower_tpu_torch/tools/oracle_variants.py"} <= names
+            "twotower_tpu_torch/tools/oracle_variants.py",
+            "twotower_tpu_torch/features/text_encoder.py",
+            "twotower_tpu_torch/bridge.py"} <= names
 
 
 def _small():
@@ -256,3 +259,61 @@ def test_device_loop_graph_matches_eager(cuda_device):
     for name in ("user_embedding", "item_embedding"):
         np.testing.assert_allclose(out[True][1]["params"][name], out[False][1]["params"][name],
                                    rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dense", "text"])
+def test_dense_and_text_graph_matches_eager(cuda_device, path):
+    """A device-loop epoch of the dense step (adamw, weight decay, schedule)
+    or of the sparse step with item tokens, captured and replayed against
+    the same epoch eager on the card (dropout 0): metrics rtol 1e-4, state
+    rtol 1e-4 / atol 1e-5; each kernel launches once a step."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    over = {"model.embedding_dim": 32, "model.user_tower_dims": [64, 32],
+            "model.item_tower_dims": [64, 32], "model.compute_dtype": "float32",
+            "model.dropout_rate": 0.0, "training.batch_size": 256,
+            "training.warmup_steps": 3, "training.decay_steps": 10}
+    if path == "dense":
+        over.update({"training.optimizer": "adamw", "training.weight_decay": 0.01})
+    else:
+        over.update({"model.text_buckets": 512, "model.text_tokens": 8})
+    cfg = Config().with_overrides(over)
+    start = bridge.state_to_numpy(
+        init_train_state(cfg, make_optimizer(cfg.training), 1000, 500, device="cpu"))
+    rng = np.random.default_rng(0)
+    users, items = rng.integers(0, 1000, 256 * 9), rng.integers(0, 500, 256 * 9)
+    tokens = rng.integers(0, 512, (500, 8)).astype(np.int32) if path == "text" else None
+    perm = rng.permutation(256 * 9)
+    out = {}
+    for capture in (True, False):
+        state = bridge.state_from_numpy(start, device=cuda_device)
+        ds = DeviceDataset(users, items, 256, device=cuda_device)
+        fn = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, device=cuda_device,
+                           capture=capture)
+        tok = None if tokens is None else torch.as_tensor(tokens, device=cuda_device)
+        kernels.reset_launch_counts()
+        state, m = fn(state, ds.columns, 0, None, tok, perm=perm)
+        out[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
+                        [w.launches for w in kernels.WRAPPERS])
+    assert out[True][2] == out[False][2] == [9, 9, 9]
+    for k, v in out[False][0].items():
+        np.testing.assert_allclose(out[True][0][k], v, rtol=1e-4, err_msg=k)
+    for part in ("params", "opt_state", "table_state"):
+        graph, eager = out[True][1][part], out[False][1][part]
+        if eager is None:
+            assert graph is None
+            continue
+        for x, y in zip(_leaves(graph), _leaves(eager)):
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5, err_msg=part)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree] if isinstance(tree, np.ndarray) else []

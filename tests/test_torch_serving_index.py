@@ -217,11 +217,9 @@ def test_unported_options_raise(tmp_path):
     params = two_tower.init_params(torch.Generator().manual_seed(0), cfg.model, 5, 5)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         RetrievalIndex(cfg, params, 5, 5, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="text tower"):
-        RetrievalIndex(cfg, params, 5, 5, item_tokens=np.zeros((5, 2)), device="cpu")
-    np.savez(tmp_path / "item_tokens.npz", tokens=np.zeros((5, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="text tower"):
-        RetrievalIndex.from_checkpoint(cfg, tmp_path, device="cpu")
+    # Item tokens need a model with a text tower (as in the JAX index).
+    with pytest.raises(ValueError, match="no text tower"):
+        RetrievalIndex(cfg, params, 5, 5, item_tokens=np.zeros((5, 2), np.int32), device="cpu")
     idx = RetrievalIndex(cfg, params, 5, 5, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
         idx.recommend(np.array([5]), k=2)

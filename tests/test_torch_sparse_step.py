@@ -25,7 +25,7 @@ from twotower_tpu.training.loop import make_train_step as jax_make_train_step
 from twotower_tpu.training.state import make_optimizer as jax_make_optimizer
 from twotower_tpu_torch import bridge
 from twotower_tpu_torch.config import Config
-from twotower_tpu_torch.training import make_optimizer, make_train_step, sparse
+from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step, sparse
 from twotower_tpu_torch.training.host_dedup import augment_batch
 from twotower_tpu_torch.training.state import lr_at
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
@@ -160,19 +160,23 @@ def test_lr_schedule_matches_optax(warmup, decay):
 
 
 def test_unported_paths_raise():
+    """Another optimizer, weight decay or ``sparse_table_updates=false``
+    leaves the sparse path for the dense step (``test_torch_dense_step.py``
+    holds it against JAX's): each builds and takes a step. The mesh path
+    still raises."""
     cfg = Config().with_overrides(OVERRIDES)
-    opt = make_optimizer(cfg.training)
-    # Another optimizer or weight decay leaves the sparse path for the dense
-    # step, which is not ported (uniform and mixed sampling are: see
-    # test_torch_sampling.py).
-    for over in ({"training.optimizer": "adagrad"}, {"training.weight_decay": 0.01}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(cfg.with_overrides(over), opt, device="cpu", num_items=NUM_ITEMS)
-    with pytest.raises(NotImplementedError, match="dense train step"):
-        make_train_step(cfg.with_overrides({"training.sparse_table_updates": False}), opt,
-                        device="cpu")
+    for over in ({"training.optimizer": "adagrad"}, {"training.weight_decay": 0.01},
+                 {"training.sparse_table_updates": False}, {"training.optimizer": "sgd"}):
+        dcfg = cfg.with_overrides(over)
+        opt = make_optimizer(dcfg.training)
+        state = init_train_state(dcfg, opt, NUM_USERS, NUM_ITEMS, device="cpu")
+        assert state.table_state is None
+        step = make_train_step(dcfg, opt, device="cpu", num_items=NUM_ITEMS)
+        state, m = step(state, _batches(1, 0, 0, False)[0], None)
+        assert state.step == state.opt_state.count == 1 and np.isfinite(float(m["loss"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(cfg.with_overrides({"training.optimizer": "sgd"}).training)
+        init_train_state(cfg, make_optimizer(cfg.training), 10, 10, mesh=object(),
+                         device="cpu")
 
 
 def test_optax_adam_state_layout_is_what_the_bridge_reads():

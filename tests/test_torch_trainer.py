@@ -172,13 +172,17 @@ def test_small_corpus_not_padded_to_full_chunk():
 
 
 def test_unported_options_raise():
+    """The mesh path still raises; the text tower and the dense step build
+    (``test_torch_text_tower.py`` and ``test_torch_dense_step.py`` train
+    them against JAX's)."""
     cfg, _, _, _ = _setup()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, item_tokens=np.zeros((3, 2), np.int32), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense train step"):
-        Trainer(cfg.with_overrides({"training.sparse_table_updates": False}), device="cpu")
+    text = cfg.with_overrides({"model.text_buckets": 64, "model.text_tokens": 2})
+    trainer = Trainer(text, item_tokens=np.zeros((3, 2), np.int32), device="cpu")
+    assert "text_embedding" in trainer.init_state(5, 3).params
+    dense = Trainer(cfg.with_overrides({"training.sparse_table_updates": False}), device="cpu")
+    assert dense.init_state(5, 3).table_state is None
 
 
 def test_finalize_throughput_and_early_stopping():

@@ -5,11 +5,15 @@ package. The layouts are the JAX package's:
 
 - params: ``{"user_embedding": [U, E], "item_embedding": [I, E],
   "user_tower"/"item_tower": [{"kernel": [in, out], "bias": [out]}, ...]}``;
-- sparse train state: ``{"step": int, "params": <params>, "opt_state":
-  {"count": int, "mu": <dense params>, "nu": <dense params>},
-  "table_state": {table: {"moments": [rows, 2E]}}}`` — ``opt_state`` is
-  optax's ``ScaleByAdamState`` of the dense towers, ``table_state`` the
-  packed lazy-Adam moments.
+- train state: ``{"step": int, "params": <params>, "opt_state": {"count":
+  int, <slots>}, "table_state": {table: {"moments": [rows, 2E]}} or
+  None}``. The slots are the optimizer's state trees by optax's field
+  names: ``mu`` and ``nu`` (``ScaleByAdamState``; adam and adamw),
+  ``sum_of_squares`` (``ScaleByRssState``; adagrad), none (sgd); ``count``
+  is the update count (optax's adam or schedule count). On the sparse path
+  the slots cover the dense towers and ``table_state`` holds the packed
+  lazy-Adam moments; on the dense path the slots cover every parameter and
+  ``table_state`` is None.
 """
 
 from __future__ import annotations
@@ -19,11 +23,18 @@ from typing import Any
 import numpy as np
 import torch
 
-from twotower_tpu_torch.training.state import AdamState, TrainState, tree_map
+from twotower_tpu_torch.training.state import (
+    TrainState,
+    opt_state_from_tree,
+    opt_state_to_tree,
+    tree_map,
+)
 
 
 def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
     """numpy parameter tree -> the port's tensors (float32, copies)."""
+    if tree is None:
+        return None
     return tree_map(
         lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device), tree
     )
@@ -31,33 +42,29 @@ def params_from_numpy(tree: Any, device: str | torch.device = "cpu") -> Any:
 
 def params_to_numpy(tree: Any) -> Any:
     """The port's tensors -> numpy parameter tree (host copies)."""
+    if tree is None:
+        return None
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
 def state_from_numpy(tree: dict, device: str | torch.device = "cpu") -> TrainState:
-    """numpy sparse train state -> ``TrainState`` on ``device``."""
+    """numpy train state -> ``TrainState`` on ``device``."""
     opt = tree["opt_state"]
+    slots = {k: params_from_numpy(v, device) for k, v in opt.items() if k != "count"}
     return TrainState(
         step=int(tree["step"]),
         params=params_from_numpy(tree["params"], device),
-        opt_state=AdamState(
-            count=int(opt["count"]),
-            mu=params_from_numpy(opt["mu"], device),
-            nu=params_from_numpy(opt["nu"], device),
-        ),
+        opt_state=opt_state_from_tree({"count": int(opt["count"]), **slots}),
         table_state=params_from_numpy(tree["table_state"], device),
     )
 
 
 def state_to_numpy(state: TrainState) -> dict:
-    """``TrainState`` -> numpy sparse train state."""
+    """``TrainState`` -> numpy train state."""
+    opt = opt_state_to_tree(state.opt_state)
     return {
         "step": int(state.step),
         "params": params_to_numpy(state.params),
-        "opt_state": {
-            "count": int(state.opt_state.count),
-            "mu": params_to_numpy(state.opt_state.mu),
-            "nu": params_to_numpy(state.opt_state.nu),
-        },
+        "opt_state": {k: v if k == "count" else params_to_numpy(v) for k, v in opt.items()},
         "table_state": params_to_numpy(state.table_state),
     }

@@ -1,6 +1,6 @@
 """Prepared-artifact fast path: feed training from prepare-data output (the
 PyTorch port's own copy of ``twotower_tpu/data/prepared.py``, numpy and
-pyarrow only; the item text tokens wait for the text tower).
+pyarrow only).
 
 The reference's whole prep script exists to write artifacts training consumes
 (reference: scripts/data_processing/prepare_training_data.py:217-234 —
@@ -428,14 +428,34 @@ class PreparedDataset:
     # -- item text tokens (streaming) ----------------------------------------
 
     def build_item_tokens(self, encoder: Any) -> np.ndarray | None:
-        """Per-item token table from the parquet's text/title columns: None
-        without an encoder; with one it raises until the text tower is
-        ported (the JAX package's ``build_item_tokens``)."""
-        if encoder is None:
+        """Per-item token table from the parquet's text/title columns,
+        first-non-empty-occurrence per item (identical selection to
+        ``features.text_encoder.select_first_item_texts``, evaluated
+        incrementally in row order; JAX ``prepared.py:428-462``). None
+        without an encoder or text columns. Host memory is the token table
+        itself (``num_items x max_tokens`` int32) plus one chunk."""
+        if encoder is None or not self.has_text:
             return None
-        raise NotImplementedError(
-            "item text tokens are not ported yet (ROADMAP.md, Queue 1: text towers)"
-        )
+        from twotower_tpu_torch.features.text_encoder import PAD_ID, select_first_item_texts
+
+        cols = ["item_idx"] + [c for c in ("text", "title") if c in self.columns]
+        table = np.full((self.num_items, encoder.max_tokens), PAD_ID, np.int32)
+        filled = np.zeros(self.num_items, bool)
+        for chunk in self._iter_columns(cols):
+            items, texts = select_first_item_texts(
+                chunk["item_idx"].astype(np.int64),
+                chunk.get("text"),
+                self.num_items,
+                titles=chunk.get("title"),
+            )
+            fresh = ~filled[items]
+            if not fresh.any():
+                continue
+            items = items[fresh]
+            texts = [t for t, f in zip(texts, fresh.tolist()) if f]
+            table[items] = encoder.encode(np.array(texts, dtype=object))
+            filled[items] = True
+        return table
 
     # -- streaming train pipeline --------------------------------------------
 

@@ -7,7 +7,8 @@ one), takes the held-out split (from ``--prepared-dir``'s encoded columns,
 after checking the artifact's vocab sizes against the checkpoint's; or
 rebuilt from ``--synthetic``/``--data`` with the SAME deterministic
 preprocessing and the checkpoint's vocab), and reports Recall@K / NDCG@K /
-MRR over the full corpus. ``--mesh`` exits with a ROADMAP.md pointer.
+MRR over the full corpus, encoded with the item text tokens saved beside
+the checkpoint when the model has a text tower. ``--mesh`` exits with a ROADMAP.md pointer.
 """
 
 from __future__ import annotations
@@ -65,6 +66,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", action="store_true",
                    help="evaluate over the device mesh (not ported yet)")
     return p
+
+
+def load_item_tokens(ckpt_dir: Path):
+    """The item token table ``train-model`` saved beside the checkpoint
+    (``item_tokens.npz``), or None when the model has no text tower (JAX
+    ``evaluate.py:69-78``)."""
+    tokens_path = Path(ckpt_dir) / "item_tokens.npz"
+    if not tokens_path.exists():
+        return None
+    with np.load(tokens_path) as tok:
+        return tok["tokens"]
 
 
 def _capped(user_idx, item_idx, rows: int | None):
@@ -187,7 +199,8 @@ def run(args, config: Config) -> dict:
     params, meta = restore_params(
         config, ckpt_dir, num_users, num_items, step=args.step, device=args.device
     )
-    evaluator = Evaluator(config, num_items, device=args.device)
+    evaluator = Evaluator(config, num_items, item_tokens=load_item_tokens(ckpt_dir),
+                          device=args.device)
     eu, ei = _capped(user_idx, item_idx, getattr(args, "rows", None))
     metrics = evaluator.evaluate(params, eu, ei)
     return {

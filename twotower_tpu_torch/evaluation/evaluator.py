@@ -2,7 +2,7 @@
 
 Counterpart of ``twotower_tpu/evaluation/evaluator.py``: encode the whole
 item corpus through the candidate tower once per evaluation (chunked, on the
-device), then stream user batches through the query tower -> MIPS top-k ->
+device; with the item text tokens when the model has a text tower), then stream user batches through the query tower -> MIPS top-k ->
 metrics. Exact mode (``retrieval.eval_exact``, the default) searches with
 ``ops.topk.topk_mips_twopass`` (float32 scores), so metrics are deterministic
 up to tie order. Validation mode (``eval_exact=false``) keeps the corpus at
@@ -62,11 +62,12 @@ class Evaluator:
             raise NotImplementedError(
                 "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
             )
-        if item_tokens is not None:
-            raise NotImplementedError(
-                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-            )
         self.device = resolve_device(device)
+        # The item text tokens ([num_items, T]) of a model with a text tower,
+        # resident on the device for the corpus encode.
+        self.item_tokens = (
+            None if item_tokens is None else torch.as_tensor(item_tokens).to(self.device)
+        )
         self.config = config
         self.num_items = num_items
         self.ks = tuple(sorted(config.retrieval.top_k_eval))
@@ -89,7 +90,8 @@ class Evaluator:
         pad a copy on every batch; the port's searches read slices of the
         corpus and never copy it, and padding rows would only add columns to
         the score product."""
-        emb = two_tower.embed_item_table(params, self.config.model, self.num_items)
+        emb = two_tower.embed_item_table(params, self.config.model, self.num_items,
+                                         item_tokens=self.item_tokens)
         return emb.to(getattr(torch, self.config.retrieval.eval_corpus_dtype))
 
     @torch.no_grad()

@@ -6,7 +6,7 @@ parity tests compare like with like::
 
     {"user_embedding": [U, E], "item_embedding": [I, E],
      "user_tower": [{"kernel": [in, out], "bias": [out]}, ...],
-     "item_tower": [...]}
+     "item_tower": [...], "text_embedding": [T, E] (model.text_buckets > 0)}
 
 ``kernel`` keeps JAX's ``[in, out]`` layout, so a layer is ``x @ kernel +
 bias``. Master parameters are float32.
@@ -78,15 +78,18 @@ def init_params(
     num_items: int,
     *,
     pad_multiple: int = LANE,
+    text_embedding_init: Any = None,
 ) -> Params:
     """Build the parameter dict on ``gen.device`` (same shapes as the JAX
     package; the values differ, since torch and JAX draw different numbers
     from one seed — the bridge carries JAX's values across when a test
-    needs them)."""
-    if config.text_buckets > 0:
-        raise NotImplementedError(
-            "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-        )
+    needs them).
+
+    With ``model.text_buckets > 0`` the dict also holds the hashed-text
+    bucket table ``text_embedding`` (``[padded_rows(text_buckets), E]``,
+    row 0 the PAD bucket), drawn after the towers, or
+    ``text_embedding_init`` (that shape, e.g. pretrained word embeddings)
+    in its place (JAX ``two_tower.py:100-114``)."""
     device = gen.device
     e = config.embedding_dim
     scale = e**-0.5
@@ -96,12 +99,24 @@ def init_params(
             (padded_rows(rows, pad_multiple), e), generator=gen, device=device
         ) * scale
 
-    return {
+    params = {
         "user_embedding": table(num_users),
         "item_embedding": table(num_items),
         "user_tower": _init_tower(gen, e, list(config.user_tower_dims), device),
         "item_tower": _init_tower(gen, e, list(config.item_tower_dims), device),
     }
+    if config.text_buckets > 0:
+        rows = padded_rows(config.text_buckets, pad_multiple)
+        if text_embedding_init is not None:
+            init = torch.as_tensor(text_embedding_init, dtype=torch.float32).to(device)
+            if tuple(init.shape) != (rows, e):
+                raise ValueError(
+                    f"text_embedding_init shape {tuple(init.shape)} != ({rows}, {e})"
+                )
+            params["text_embedding"] = init.clone()
+        else:
+            params["text_embedding"] = table(config.text_buckets)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -202,6 +217,21 @@ def embed_users(
     )
 
 
+def pool_rows(tok_rows: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Masked-mean pool of pre-gathered token rows ``[B, T, E]`` (token 0 =
+    PAD) -> ``[B, E]``: the one embedding-bag of ``pool_text`` and the
+    sparse step (JAX ``two_tower.py:200-213``)."""
+    mask = (tokens != 0).to(tok_rows.dtype)[..., None]
+    total = torch.sum(tok_rows * mask, dim=1)
+    count = torch.clamp(torch.sum(mask, dim=1), min=1.0)
+    return total / count
+
+
+def pool_text(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding-bag over hashed n-gram tokens ``[B, T]`` -> ``[B, E]``."""
+    return pool_rows(params["text_embedding"][tokens], tokens)
+
+
 def embed_items(
     params: Params,
     item_idx: torch.Tensor,
@@ -209,12 +239,17 @@ def embed_items(
     *,
     train: bool = False,
     dropout_gen: torch.Generator | None = None,
+    text_tokens: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Candidate tower: table gather -> MLP -> optional L2 normalize."""
-    return apply_item_tower(
-        params, params["item_embedding"][item_idx], config,
-        train=train, dropout_gen=dropout_gen,
-    )
+    """Candidate tower: table gather (+ the pooled text embedding of
+    ``text_tokens``, ``[B, T]`` hashed n-gram ids aligned with
+    ``item_idx``) -> MLP -> optional L2 normalize."""
+    emb = params["item_embedding"][item_idx]
+    if text_tokens is not None:
+        if "text_embedding" not in params:
+            raise ValueError("model has no text tower (set model.text_buckets > 0)")
+        emb = emb + pool_text(params, text_tokens)
+    return apply_item_tower(params, emb, config, train=train, dropout_gen=dropout_gen)
 
 
 @torch.no_grad()
@@ -224,18 +259,23 @@ def embed_item_table(
     num_items: int,
     *,
     chunk_size: int = 65536,
+    item_tokens: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Materialize the item-corpus embedding matrix ``[num_items, D]`` by
     streaming the table through the candidate tower in chunks of rows (eval
     mode: no dropout) — the corpus encode pass of evaluation and index
-    building. Counterpart of the JAX ``embed_item_table``, which maps the
-    tower over the whole padded table; only the ``num_items`` real rows are
-    encoded here, and each row's output does not depend on its chunk."""
-    table = params["item_embedding"]
-    parts = [
-        apply_item_tower(params, table[start : min(start + chunk_size, num_items)], config)
-        for start in range(0, num_items, chunk_size)
-    ]
+    building. ``item_tokens``: optional per-item hashed text ``[num_items,
+    T]`` on the params' device. Counterpart of the JAX ``embed_item_table``,
+    which maps the tower over the whole padded table (its padding rows read
+    a real item's tokens, then are sliced off); only the ``num_items`` real
+    rows are encoded here, and each row's output does not depend on its
+    chunk."""
+    parts = []
+    for start in range(0, num_items, chunk_size):
+        idx = torch.arange(start, min(start + chunk_size, num_items),
+                           device=params["item_embedding"].device)
+        tokens = None if item_tokens is None else item_tokens[idx]
+        parts.append(embed_items(params, idx, config, text_tokens=tokens))
     return torch.cat(parts)
 
 

@@ -1,7 +1,8 @@
 """Retrieval index: the serving-side candidate search (PyTorch).
 
 Counterpart of ``twotower_tpu/serving/index.py`` on one device. The item
-corpus is encoded once through the candidate tower, padded once to its
+corpus is encoded once through the candidate tower (with each item's text
+tokens when the model has a text tower), padded once to its
 search's layout (``exact_padded_rows`` / ``ann_padded_rows``; padding rows
 are never scored) and kept resident in the precision
 ``serving.corpus_dtype`` resolves to: float32 under ``tpu_mips_exact``, and
@@ -56,10 +57,6 @@ class RetrievalIndex:
             raise NotImplementedError(
                 "a sharded serving corpus is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
             )
-        if item_tokens is not None:
-            raise NotImplementedError(
-                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.params = params
@@ -70,8 +67,10 @@ class RetrievalIndex:
         self.quantized = resolved.startswith("int8")
         self.exact = config.serving.index_type == "tpu_mips_exact"
         padded = exact_padded_rows(num_items) if self.exact else ann_padded_rows(num_items)
+        tokens = None if item_tokens is None else torch.as_tensor(item_tokens).to(self.device)
         with torch.no_grad():
-            emb = two_tower.embed_item_table(params, config.model, num_items)
+            emb = two_tower.embed_item_table(params, config.model, num_items,
+                                             item_tokens=tokens)
             if padded != num_items:
                 emb = F.pad(emb, (0, 0, 0, padded - num_items))
             if self.quantized:
@@ -79,7 +78,7 @@ class RetrievalIndex:
                     emb, per_row=resolved == "int8_rowscale")
             else:
                 self.corpus, self.corpus_scale = emb.to(getattr(torch, resolved)), None
-        del emb
+        del emb, tokens
         logger.info(
             "retrieval index ready: %d items (%d padded rows) x %d dims (%s) on %s",
             num_items, padded, self.corpus.shape[1], resolved, self.device,
@@ -177,7 +176,9 @@ class RetrievalIndex:
         cls, config: Config, checkpoint_dir: str | Path, mesh=None,
         step: int | None = None, device: str | torch.device | None = None,
     ) -> "RetrievalIndex":
-        """Load params and vocab from a ``train-model`` checkpoint directory.
+        """Load params and vocab (and ``item_tokens.npz``, the item text
+        tokens of a model with a text tower) from a ``train-model``
+        checkpoint directory.
 
         ``step``: a specific checkpoint step (default: the best-metric step,
         as ``evaluate-model`` restores). The step is recorded as
@@ -187,17 +188,16 @@ class RetrievalIndex:
         from twotower_tpu_torch.evaluation.evaluate import restore_params
 
         device = resolve_device(device)  # no GPU: raise before any work
+        from twotower_tpu_torch.evaluation.evaluate import load_item_tokens
+
         ckpt_dir = Path(checkpoint_dir)
-        if (ckpt_dir / "item_tokens.npz").exists():
-            raise NotImplementedError(
-                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-            )
         vocab = VocabPair.load(ckpt_dir / "vocab")
         num_users, num_items = len(vocab.users), len(vocab.items)
         params, meta = restore_params(
             config, ckpt_dir, num_users, num_items, step=step, device=device
         )
-        index = cls(config, params, num_users, num_items, mesh=mesh, device=device)
+        index = cls(config, params, num_users, num_items,
+                    item_tokens=load_item_tokens(ckpt_dir), mesh=mesh, device=device)
         index.vocab = vocab
         index.checkpoint_step = meta.get("step")
         return index

@@ -10,14 +10,17 @@ the steps). The port keeps its pieces:
 - ``make_epoch_fn``: an epoch is a permutation of the padded rows drawn on
   the device, then ``num_steps`` steps. Each step selects its rows as
   ``perm.view(num_steps, B)[i]``, with ``i`` a counter on the device,
-  gathers the three columns and runs the sparse step with its in-device
-  ``dedup_rows`` (host dedup is a host-loop feature, as in the JAX device
-  loop); its metrics are added into sums on the device, and the host reads
-  the epoch's means once. The step count, the learning rate and the bias
-  corrections are device tensors too (``make_sparse_step_fn``'s ``clock``).
+  gathers the three columns and runs the train step: the sparse step with
+  its in-device ``dedup_rows`` (host dedup is a host-loop feature, as in
+  the JAX device loop), or the dense step where
+  ``training.effective_sparse_updates()`` is false (JAX
+  ``device_loop.py:82-88``), with the item text tokens when the model has a
+  text tower; its metrics are added into sums on the device, and the host
+  reads the epoch's means once. The step count, the learning rate and the
+  bias corrections are device tensors too (the steps' ``clock``).
   On a CUDA device one CUDA graph holds the whole step (row selection,
-  gather, towers, the fused loss's three kernels, the backward, dense Adam,
-  the row updates, the metric sums and the counters): it is captured once,
+  gather, towers, the fused loss's three kernels, the backward, the
+  optimizer, the row updates, the metric sums and the counters): it is captured once,
   after warm-up steps that are the first real steps of the first epoch, and
   replayed once a step. On the CPU the same step runs eagerly.
 - ``DeviceTrainer``: the epoch-granular host loop (validation, early
@@ -30,6 +33,7 @@ step or to the host loop.
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import Any
 
 import numpy as np
@@ -44,7 +48,12 @@ from twotower_tpu_torch.training.loop import (
     ensure_final_persisted,
     warn_dropped_ids,
 )
-from twotower_tpu_torch.training.state import AdamState, TrainState, make_optimizer, tree_leaves
+from twotower_tpu_torch.training.state import (
+    TrainState,
+    make_optimizer,
+    opt_slots,
+    tree_leaves,
+)
 from twotower_tpu_torch.utils.platform import resolve_device
 
 logger = get_logger(__name__)
@@ -100,12 +109,12 @@ class _EpochProgram:
     times ``step``, ``end_epoch`` (a caller that times single steps drives
     the three itself). The buffers a replayed step reads and writes
     (permutation, row counter, step clock, metric sums) live here, and the
-    captured graph is bound to the tensors of the state, columns and log q
-    of its capture."""
+    captured graph is bound to the tensors of the state, columns, log q and
+    item tokens of its capture."""
 
     def __init__(self, config: Config, optimizer, num_steps: int, *, num_items, device,
                  capture):
-        from twotower_tpu_torch.training.sparse import make_sparse_step_fn
+        from twotower_tpu_torch.training.loop import make_raw_step
 
         self.device = resolve_device(device)
         if capture is None:
@@ -116,7 +125,7 @@ class _EpochProgram:
         self.num_steps = num_steps
         self.batch_size = config.training.batch_size
         self.seed = config.training.seed
-        self._step = make_sparse_step_fn(config, optimizer, num_items=num_items)
+        self._step = make_raw_step(config, optimizer, num_items=num_items)
         dev = self.device
         # Dropout masks: one generator for the run, registered with the graph
         # so every replay draws fresh masks.
@@ -133,12 +142,12 @@ class _EpochProgram:
         self._done = 0
         self._stream = torch.cuda.Stream(dev) if capture else None
 
-    def _body(self, state: TrainState, columns: dict, log_q) -> None:
+    def _body(self, state: TrainState, columns: dict, log_q, item_tokens) -> None:
         """One step, every value it reads and writes on the device."""
         sel = self._perm.view(self.num_steps, self.batch_size).index_select(0, self._row)
         sel = sel.view(-1)
         batch = {k: v.index_select(0, sel) for k, v in columns.items()}
-        _, metrics = self._step(state, batch, self._gen, log_q, clock=self._clock)
+        _, metrics = self._step(state, batch, self._gen, log_q, item_tokens, clock=self._clock)
         if self._sums is None:
             self._sums = {k: torch.zeros_like(v) for k, v in metrics.items()}
         for k, v in metrics.items():
@@ -146,7 +155,7 @@ class _EpochProgram:
         self._row.add_(1)
 
     def begin_epoch(self, state: TrainState, columns: dict, epoch: int, log_q=None,
-                    perm=None) -> None:
+                    item_tokens=None, *, perm=None) -> None:
         """Set the epoch's buffers: its permutation, the row counter, the
         step clock (``state.step``) and the metric sums."""
         n = self.num_steps * self.batch_size
@@ -155,8 +164,8 @@ class _EpochProgram:
                 f"columns hold {columns['user_idx'].shape[0]} rows, the epoch {n} "
                 f"({self.num_steps} steps of {self.batch_size})"
             )
-        self._bind(state, columns, log_q)
-        self._args = (state, columns, log_q)
+        self._bind(state, columns, log_q, item_tokens)
+        self._args = (state, columns, log_q, item_tokens)
         if perm is None:
             gen = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch))
             torch.randperm(n, generator=gen, out=self._perm)
@@ -210,26 +219,27 @@ class _EpochProgram:
         return TrainState(
             step=state.step + self.num_steps,
             params=state.params,
-            opt_state=AdamState(count=opt.count + self.num_steps, mu=opt.mu, nu=opt.nu),
+            opt_state=replace(opt, count=opt.count + self.num_steps),
             table_state=state.table_state,
         ), metrics
 
-    def _bind(self, state: TrainState, columns: dict, log_q) -> None:
+    def _bind(self, state: TrainState, columns: dict, log_q, item_tokens) -> None:
         """The captured graph reads and writes fixed addresses: refuse other
         tensors than those it was captured with."""
-        leaves = [state.params, state.opt_state.mu, state.opt_state.nu, state.table_state,
-                  columns, log_q]
+        leaves = [state.params, list(opt_slots(state.opt_state).values()), state.table_state,
+                  columns, log_q, item_tokens]
         ptrs = tuple(t.data_ptr() for t in tree_leaves(leaves) if t is not None)
         if self._bound is None:
             self._bound = ptrs
         elif self._graph is not None and ptrs != self._bound:
             raise ValueError(
-                "the epoch's CUDA graph is bound to the state, columns and log q of its "
-                "capture; build a new epoch function for other tensors"
+                "the epoch's CUDA graph is bound to the state, columns, log q and item "
+                "tokens of its capture; build a new epoch function for other tensors"
             )
 
-    def __call__(self, state: TrainState, columns: dict, epoch: int, log_q=None, perm=None):
-        self.begin_epoch(state, columns, epoch, log_q, perm)
+    def __call__(self, state: TrainState, columns: dict, epoch: int, log_q=None,
+                 item_tokens=None, *, perm=None):
+        self.begin_epoch(state, columns, epoch, log_q, item_tokens, perm=perm)
         for _ in range(self.num_steps):
             self.step()
         return self.end_epoch()
@@ -244,8 +254,9 @@ def make_epoch_fn(
     device: str | torch.device | None = None,
     capture: bool | None = None,
 ):
-    """Build ``epoch_fn(state, columns, epoch, log_q=None, perm=None)``:
-    the epoch's permutation and ``num_steps`` sparse train steps on
+    """Build ``epoch_fn(state, columns, epoch, log_q=None, item_tokens=None,
+    *, perm=None)``: the epoch's permutation and ``num_steps`` train steps
+    (sparse or dense, as ``training.loop.make_raw_step`` dispatches) on
     ``device`` (``cuda`` unless the caller asks for the CPU), returning
     ``(new_state, {metric: epoch mean as a 0-d device tensor})``. The
     state's tensors are updated in place.
@@ -255,10 +266,6 @@ def make_epoch_fn(
     padded rows' order, in place of the one drawn from ``epoch_seed``), and
     ``capture=False``, which runs the same step eagerly on a CUDA device.
     """
-    if not config.training.effective_sparse_updates():
-        raise NotImplementedError(
-            "the dense train step is not ported yet (ROADMAP.md, Queue 1: the dense step)"
-        )
     return _EpochProgram(config, optimizer, num_steps, num_items=num_items, device=device,
                          capture=capture)
 
@@ -287,10 +294,6 @@ class DeviceTrainer:
             raise NotImplementedError(
                 "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
             )
-        if item_tokens is not None or text_embedding_init is not None:
-            raise NotImplementedError(
-                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.optimizer = make_optimizer(config.training)
@@ -298,6 +301,10 @@ class DeviceTrainer:
             None if log_q is None
             else torch.as_tensor(log_q, dtype=torch.float32).to(self.device)
         )
+        self.item_tokens = (
+            None if item_tokens is None else torch.as_tensor(item_tokens).to(self.device)
+        )
+        self._text_embedding_init = text_embedding_init
         self.num_items = num_items
         self.evaluate_fn = evaluate_fn
         self.writers = writers or []
@@ -309,7 +316,8 @@ class DeviceTrainer:
         from twotower_tpu_torch.training.state import init_train_state
 
         return init_train_state(
-            self.config, self.optimizer, num_users, num_items, device=self.device
+            self.config, self.optimizer, num_users, num_items,
+            text_embedding_init=self._text_embedding_init, device=self.device,
         )
 
     def _epoch_fn(self, num_steps: int):
@@ -334,7 +342,8 @@ class DeviceTrainer:
 
         for epoch in range(start_epoch, cfg.epochs):
             t_epoch = time.perf_counter()
-            state, metrics = epoch_fn(state, dataset.columns, epoch, self.log_q)
+            state, metrics = epoch_fn(state, dataset.columns, epoch, self.log_q,
+                                      self.item_tokens)
             host = _host_metrics(metrics)  # the epoch's one read
             warn_dropped_ids(host, epoch=epoch, step=int(state.step))
             epoch_time = time.perf_counter() - t_epoch

@@ -1,12 +1,14 @@
 """Train step, segment runner and the epoch loop with early stopping
 (PyTorch).
 
-Counterpart of ``twotower_tpu/training/loop.py``, single device, sparse
-branch: the host loop feeds fixed-shape batches through a background
-prefetcher (host dedup on its thread), reads each dispatch's metrics one
-dispatch late, validates, early-stops, saves on improvement and persists
-progress on preemption. The dense step, the mesh path and text tokens raise
-with a pointer to ROADMAP.md.
+Counterpart of ``twotower_tpu/training/loop.py``, single device: the
+sparse step (``training/sparse.py``) or the dense step (``make_step_fn``,
+which differentiates the whole parameter tree and applies the optimizer to
+it), as ``training.sparse_table_updates`` and the optimizer choose; the
+host loop feeds fixed-shape batches through a background prefetcher (host
+dedup on its thread), reads each dispatch's metrics one dispatch late,
+validates, early-stops, saves on improvement and persists progress on
+preemption. The mesh path raises with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,7 +22,14 @@ import torch
 
 from twotower_tpu_torch.config import Config
 from twotower_tpu_torch.logging_utils import get_logger
-from twotower_tpu_torch.training.state import Adam, TrainState, make_optimizer
+from twotower_tpu_torch.training.state import (
+    Optimizer,
+    TrainState,
+    lr_at,
+    make_optimizer,
+    tree_leaves,
+    tree_map,
+)
 from twotower_tpu_torch.utils.platform import resolve_device
 
 logger = get_logger(__name__)
@@ -28,36 +37,148 @@ logger = get_logger(__name__)
 TrainStepFn = Callable[[TrainState, dict, Any], tuple[TrainState, dict]]
 
 
+def make_loss_fn(config: Config, *, num_items: int | None = None):
+    """Build ``loss_fn(params, batch, rng, log_q=None, item_tokens=None, *,
+    neg_ids=None) -> (loss, metrics)`` over the whole parameter tree (JAX
+    ``loop.py:36-131``): both towers (the item tower with the pooled text
+    of ``item_tokens[item_idx]`` when given), then the in-batch loss through
+    ``in_batch_softmax_loss_auto`` (the fused kernels on CUDA tensors), or
+    the uniform or mixed sampled loss over ``retrieval.num_negatives`` ids
+    drawn from ``rng`` (``neg_ids`` hands them in), plus the sparse L2.
+    ``rng`` is a ``torch.Generator`` on the device (negatives, then the
+    dropout masks, in the sparse step's order)."""
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
+    from twotower_tpu_torch.ops.losses import (
+        l2_penalty,
+        mixed_sampled_softmax_loss,
+        uniform_sampled_softmax_loss,
+    )
+
+    mcfg = config.model
+    rcfg = config.retrieval
+    mode = rcfg.candidate_sampling
+    sample_negs = mode in ("uniform", "mixed")
+    if sample_negs and num_items is None:
+        raise ValueError(
+            f"{mode} candidate sampling needs num_items (pass it to make_train_step / the "
+            "Trainer)"
+        )
+
+    def loss_fn(params, batch: dict, rng, log_q=None, item_tokens=None, *, neg_ids=None):
+        u_ids, i_ids = batch["user_idx"], batch["item_idx"]
+        if sample_negs:
+            if neg_ids is None:
+                neg_ids = torch.randint(0, num_items, (rcfg.num_negatives,), generator=rng,
+                                        device=i_ids.device)
+            neg_ids = neg_ids.to(device=i_ids.device, dtype=i_ids.dtype)
+        user_emb = two_tower.embed_users(params, u_ids, mcfg, train=True, dropout_gen=rng)
+        tokens = None if item_tokens is None else item_tokens[i_ids]
+        item_emb = two_tower.embed_items(params, i_ids, mcfg, train=True, dropout_gen=rng,
+                                         text_tokens=tokens)
+        weights = batch.get("weight")
+        lq = log_q if rcfg.logq_correction else None
+        if sample_negs:
+            neg_emb = two_tower.embed_items(
+                params, neg_ids, mcfg, train=True, dropout_gen=rng,
+                text_tokens=None if item_tokens is None else item_tokens[neg_ids],
+            )
+        if mode == "uniform":
+            loss, metrics = uniform_sampled_softmax_loss(
+                user_emb, item_emb, neg_emb, temperature=rcfg.temperature, weights=weights,
+                pos_idx=i_ids, neg_idx=neg_ids,
+            )
+        elif mode == "mixed":
+            loss, metrics = mixed_sampled_softmax_loss(
+                user_emb, item_emb, i_ids, neg_emb, neg_ids, temperature=rcfg.temperature,
+                log_q=lq, num_items=num_items, weights=weights,
+            )
+        else:
+            loss, metrics = in_batch_softmax_loss_auto(
+                user_emb, item_emb, i_ids, temperature=rcfg.temperature, log_q=lq,
+                weights=weights,
+            )
+        if mcfg.l2_regularization > 0:
+            reg = l2_penalty(
+                {"user_tower": params["user_tower"], "item_tower": params["item_tower"]},
+                [params["user_embedding"][u_ids], params["item_embedding"][i_ids]],
+            )
+            loss = loss + mcfg.l2_regularization * reg
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_step_fn(config: Config, optimizer: Optimizer, *, num_items: int | None = None):
+    """The dense train step ``step(state, batch, rng, log_q=None,
+    item_tokens=None, *, clock=None, neg_ids=None)`` (JAX ``loop.py:146-183``):
+    the gradient of ``make_loss_fn``'s loss w.r.t. every parameter, tables
+    included, then ``optimizer`` over the whole tree, in place, and
+    ``grad_norm`` the global norm of all the gradients. The signature and
+    ``clock`` are the sparse step's (``training.sparse.make_sparse_step_fn``):
+    with ``clock`` the learning rate and the optimizer's count-dependent
+    terms are computed on the device and the step can be captured in a
+    CUDA graph."""
+    loss_fn = make_loss_fn(config, num_items=num_items)
+
+    def step(state: TrainState, batch: dict, rng: Any, log_q=None, item_tokens=None, *,
+             clock: torch.Tensor | None = None, neg_ids: torch.Tensor | None = None):
+        diff = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(diff, batch, rng, log_q, item_tokens, neg_ids=neg_ids)
+            grads = torch.autograd.grad(loss, tree_leaves(diff))
+        lr = None if clock is None else lr_at(config.training, clock)
+        new_opt = optimizer.update_(state.params, list(grads), state.opt_state, clock=clock,
+                                    lr=lr)
+        if clock is not None:
+            clock.add_(1.0)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        return TrainState(step=state.step + 1, params=state.params, opt_state=new_opt), metrics
+
+    return step
+
+
+def make_raw_step(config: Config, optimizer: Optimizer, *, num_items: int | None = None):
+    """The sparse step when ``training.effective_sparse_updates()``, else the
+    dense one (JAX ``make_train_step``'s dispatch, ``loop.py:186-207``)."""
+    if config.training.effective_sparse_updates():
+        from twotower_tpu_torch.training.sparse import make_sparse_step_fn
+
+        return make_sparse_step_fn(config, optimizer, num_items=num_items)
+    return make_step_fn(config, optimizer, num_items=num_items)
+
+
 def make_train_step(
     config: Config,
-    optimizer: Adam,
+    optimizer: Optimizer,
     log_q: np.ndarray | torch.Tensor | None = None,
     *,
+    item_tokens: np.ndarray | torch.Tensor | None = None,
     num_items: int | None = None,
     device: str | torch.device | None = None,
 ) -> TrainStepFn:
     """Build the train step ``step(state, batch, rng)`` on ``device``
-    (``cuda`` unless the caller asks for the CPU).
+    (``cuda`` unless the caller asks for the CPU): sparse or dense as
+    ``make_raw_step`` dispatches, with ``log_q`` and ``item_tokens`` bound
+    as tensors on the device.
 
     ``batch`` is a dict of numpy arrays or tensors (``user_idx``,
     ``item_idx``, optional ``weight`` and the ``training.host_dedup`` keys);
     they are moved to the device. ``rng`` is a ``torch.Generator`` on the
-    device for the dropout masks (or None at dropout 0). The step updates
-    ``state``'s tensors in place and returns ``(new_state, metrics)``.
+    device for the dropout masks and sampled negatives (or None at dropout
+    0 in_batch). The step updates ``state``'s tensors in place and returns
+    ``(new_state, metrics)``.
     """
-    if not config.training.effective_sparse_updates():
-        raise NotImplementedError(
-            "the dense train step is not ported yet (ROADMAP.md, Queue 1: the dense step)"
-        )
-    from twotower_tpu_torch.training.sparse import make_sparse_step_fn
-
     dev = resolve_device(device)
-    raw = make_sparse_step_fn(config, optimizer, num_items=num_items)
+    raw = make_raw_step(config, optimizer, num_items=num_items)
     lq = None if log_q is None else torch.as_tensor(log_q, dtype=torch.float32).to(dev)
+    tok = None if item_tokens is None else torch.as_tensor(item_tokens).to(dev)
 
     def step(state: TrainState, batch: dict, rng: Any):
         on_dev = {k: torch.as_tensor(v).to(dev, non_blocking=True) for k, v in batch.items()}
-        return raw(state, on_dev, rng, lq)
+        return raw(state, on_dev, rng, lq, tok)
 
     return step
 
@@ -214,15 +335,13 @@ class Trainer:
             raise NotImplementedError(
                 "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
             )
-        if item_tokens is not None or text_embedding_init is not None:
-            raise NotImplementedError(
-                "the text tower is not ported yet (ROADMAP.md, Queue 1: text towers)"
-            )
         self.device = resolve_device(device)
         self.config = config
         self.optimizer = make_optimizer(config.training)
+        self._text_embedding_init = text_embedding_init
         self.train_step = make_train_step(
-            config, self.optimizer, log_q, num_items=num_items, device=self.device
+            config, self.optimizer, log_q, item_tokens=item_tokens, num_items=num_items,
+            device=self.device,
         )
         self.evaluate_fn = evaluate_fn
         self.writers = writers or []
@@ -234,7 +353,8 @@ class Trainer:
         from twotower_tpu_torch.training.state import init_train_state
 
         return init_train_state(
-            self.config, self.optimizer, num_users, num_items, device=self.device
+            self.config, self.optimizer, num_users, num_items,
+            text_embedding_init=self._text_embedding_init, device=self.device,
         )
 
     def _write(self, payload: dict[str, float], step: int) -> None:

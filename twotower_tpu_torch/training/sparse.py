@@ -168,9 +168,10 @@ def sparse_table_updates(
 
 def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None):
     """Train step with sparse table updates: ``step(state, batch, rng,
-    log_q=None, clock=None, neg_ids=None)`` with ``batch`` a dict of tensors
-    on the state's device and ``rng`` a ``torch.Generator`` there (dropout
-    masks and sampled negatives; None: the device's default generator).
+    log_q=None, item_tokens=None, *, clock=None, neg_ids=None)`` with
+    ``batch`` a dict of tensors on the state's device and ``rng`` a
+    ``torch.Generator`` there (dropout masks and sampled negatives; None:
+    the device's default generator).
 
     ``clock``, a 0-d float32 tensor on the device holding the step count
     before this step, makes the step capturable in a CUDA graph: the
@@ -188,6 +189,14 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
     through the item tower and update them with the positives' rows.
     ``neg_ids`` hands the step its negative ids instead (the parity tests
     pass the JAX package's threefry draw).
+
+    ``item_tokens`` (``[num_items, T]`` int32 on the device) turns on the
+    text tower: each item row (and each negative) gathers its tokens' rows
+    of ``text_embedding``, pools them into its tower input
+    (``two_tower.pool_rows``), and the token ids with their row gradients
+    go to the lazy-Adam update of ``text_embedding`` (JAX
+    ``sparse.py:231-261,318-327``). The PAD row 0 gets a zero gradient but
+    counts as touched, as in the JAX step.
     """
     from twotower_tpu_torch.models import two_tower
     from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
@@ -207,6 +216,7 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
 
     def step(state: TrainState, batch: dict, rng: torch.Generator | None,
              log_q: torch.Tensor | None = None,
+             item_tokens: torch.Tensor | None = None, *,
              clock: torch.Tensor | None = None,
              neg_ids: torch.Tensor | None = None) -> tuple[TrainState, dict[str, Any]]:
         tables, dense = split_params(state.params)
@@ -217,26 +227,38 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
         diff = tree_map(lambda t: t.detach().requires_grad_(), dense)
         u_rows = tables["user_embedding"][u_ids].requires_grad_()
         i_rows = tables["item_embedding"][i_ids].requires_grad_()
-        rows = [u_rows, i_rows]
+        rows = {"user": u_rows, "item": i_rows}
+        tokens = None if item_tokens is None else item_tokens[i_ids]
+        if tokens is not None:
+            tok_rows = rows["text"] = tables["text_embedding"][tokens].requires_grad_()
         if sample_negs:
             if neg_ids is None:
                 neg_ids = torch.randint(0, num_items, (rcfg.num_negatives,), generator=rng,
                                         device=i_ids.device)
             neg_ids = neg_ids.to(device=i_ids.device, dtype=i_ids.dtype)
-            neg_rows = tables["item_embedding"][neg_ids].requires_grad_()
-            rows.append(neg_rows)
+            neg_rows = rows["neg"] = tables["item_embedding"][neg_ids].requires_grad_()
+            if tokens is not None:
+                neg_tokens = item_tokens[neg_ids]
+                neg_tok_rows = rows["neg_text"] = (
+                    tables["text_embedding"][neg_tokens].requires_grad_())
         with torch.enable_grad():
             u_emb = two_tower.apply_user_tower(
                 diff, u_rows, mcfg, train=True, dropout_gen=rng
             )
+            item_in = i_rows
+            if tokens is not None:
+                item_in = item_in + two_tower.pool_rows(tok_rows, tokens)
             i_emb = two_tower.apply_item_tower(
-                diff, i_rows, mcfg, train=True, dropout_gen=rng
+                diff, item_in, mcfg, train=True, dropout_gen=rng
             )
             weights = batch.get("weight")
             lq = log_q if rcfg.logq_correction else None
             if sample_negs:
+                neg_in = neg_rows
+                if tokens is not None:
+                    neg_in = neg_in + two_tower.pool_rows(neg_tok_rows, neg_tokens)
                 neg_emb = two_tower.apply_item_tower(
-                    diff, neg_rows, mcfg, train=True, dropout_gen=rng
+                    diff, neg_in, mcfg, train=True, dropout_gen=rng
                 )
             if mode == "uniform":
                 loss, metrics = uniform_sampled_softmax_loss(
@@ -257,9 +279,9 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
                 reg = l2_penalty(diff, [u_rows, i_rows])
                 loss = loss + mcfg.l2_regularization * reg
             leaves = tree_leaves(diff)
-            grads = torch.autograd.grad(loss, [*leaves, *rows])
+            grads = torch.autograd.grad(loss, [*leaves, *rows.values()])
         dense_grads = list(grads[: len(leaves)])
-        u_grad, i_grad, *neg_grad = grads[len(leaves):]
+        row_grad = dict(zip(rows, grads[len(leaves):]))
         if clock is None:
             lr, step_num = lr_fn(state.step), state.step + 1
         else:
@@ -269,8 +291,18 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
             dense, dense_grads, state.opt_state, clock=clock, lr=None if clock is None else lr
         )
 
+        i_grad = row_grad["item"]
         if sample_negs:
-            i_ids, i_grad = torch.cat([i_ids, neg_ids]), torch.cat([i_grad, *neg_grad])
+            i_ids, i_grad = torch.cat([i_ids, neg_ids]), torch.cat([i_grad, row_grad["neg"]])
+        row_grads = {"user_embedding": (u_ids, row_grad["user"]),
+                     "item_embedding": (i_ids, i_grad)}
+        if tokens is not None:
+            e = tok_rows.shape[-1]
+            tok_ids, tok_grads = tokens.reshape(-1), row_grad["text"].reshape(-1, e)
+            if sample_negs:
+                tok_ids = torch.cat([tok_ids, neg_tokens.reshape(-1)])
+                tok_grads = torch.cat([tok_grads, row_grad["neg_text"].reshape(-1, e)])
+            row_grads["text_embedding"] = (tok_ids, tok_grads)
         pre = {}
         if "u_targets" in batch:
             pre["user_embedding"] = (batch["u_targets"], batch["u_seg"], batch["u_valid"])
@@ -281,7 +313,7 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
         tbl_norm_sq = sparse_table_updates(
             tables,
             state.table_state,
-            {"user_embedding": (u_ids, u_grad), "item_embedding": (i_ids, i_grad)},
+            row_grads,
             lr=lr,
             step=step_num,
             pre=pre or None,

@@ -9,7 +9,7 @@ step) and returns a new ``TrainState`` that shares them.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 from typing import Any, Callable
 
 import torch
@@ -40,81 +40,168 @@ def tree_leaves(tree: Any) -> list[torch.Tensor]:
 
 @dataclass
 class AdamState:
-    """Dense-tower Adam state, optax's ``ScaleByAdamState`` layout: ``mu``
-    and ``nu`` have the structure of the parameters they cover."""
+    """Adam state, optax's ``ScaleByAdamState`` layout: ``mu`` and ``nu``
+    have the structure of the parameters they cover. ``count`` is the
+    number of updates applied, which also drives a schedule (optax keeps
+    it again in ``ScaleByScheduleState``)."""
 
     count: int
     mu: Any
     nu: Any
 
 
-class Adam:
-    """Adam with optax semantics: ``mu_hat / (sqrt(nu_hat) + eps)``, bias
-    correction by the incremented count, ``lr`` a constant or a schedule of
-    the count before the increment (``optax.adam``)."""
+@dataclass
+class RssState:
+    """Adagrad state, optax's ``ScaleByRssState`` layout: the running sum of
+    squared gradients per parameter, and the update count."""
 
-    def __init__(
-        self,
-        learning_rate: float | Schedule,
-        b1: float = 0.9,
-        b2: float = 0.999,
-        eps: float = 1e-8,
-    ):
+    count: int
+    sum_of_squares: Any
+
+
+@dataclass
+class SgdState:
+    """SGD keeps no slots (optax's ``EmptyState``); ``count`` drives a
+    schedule (``ScaleByScheduleState``)."""
+
+    count: int
+
+
+OPT_STATES = (AdamState, RssState, SgdState)
+
+
+def opt_slots(state: Any) -> dict[str, Any]:
+    """An optimizer state's trees by field name (every field but ``count``)."""
+    return {f.name: getattr(state, f.name) for f in fields(state) if f.name != "count"}
+
+
+def opt_state_to_tree(state: Any) -> dict:
+    """``{"count": int, <slot>: tree, ...}``: the layout that checkpoints and
+    the bridge store (an adam state: ``count``, ``mu``, ``nu``)."""
+    return {"count": int(state.count), **opt_slots(state)}
+
+
+def opt_state_from_tree(tree: dict) -> Any:
+    """Inverse of ``opt_state_to_tree``: the state class whose slots are the
+    tree's keys."""
+    slots = {k: v for k, v in tree.items() if k != "count"}
+    for cls in OPT_STATES:
+        if {f.name for f in fields(cls)} - {"count"} == set(slots):
+            return cls(count=int(tree["count"]), **slots)
+    raise ValueError(f"no optimizer state has the slots {sorted(slots)}")
+
+
+class _Optimizer:
+    """optax semantics written out by hand (optax 0.2.6): the update is
+    computed per parameter leaf and applied in place.
+
+    ``weight_decay`` is coupled L2 unless ``decoupled``: ``g + wd * p``
+    before the optimizer's transform (``chain(add_decayed_weights(wd),
+    tx)``, on every leaf, tables included: optax takes no mask there); with
+    ``decoupled`` (adamw) ``u + wd * p`` after it. Then ``p -= lr * u``
+    with ``lr`` a constant or a schedule of the count before the update
+    (``scale_by_learning_rate``).
+
+    ``update_(params, grads, state, *, clock=None, lr=None)``: with
+    ``clock`` (the count before this update, a 0-d float32 tensor on the
+    device) and ``lr`` (a 0-d tensor there), whatever depends on the count
+    is computed on the device, so the update can be captured in a CUDA
+    graph and replayed; ``state.count`` is then host bookkeeping only. The
+    same object serves the dense towers of the sparse step and the whole
+    parameter tree of the dense step."""
+
+    def __init__(self, learning_rate: float | Schedule, *, weight_decay: float = 0.0,
+                 decoupled: bool = False):
         self.learning_rate = learning_rate
-        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.decoupled = decoupled
 
     def lr(self, count: int) -> float:
         lr = self.learning_rate
         return lr(count) if callable(lr) else lr
 
-    def init(self, params: Any) -> AdamState:
-        return AdamState(
-            count=0,
-            mu=tree_map(torch.zeros_like, params),
-            nu=tree_map(torch.zeros_like, params),
-        )
+    def _coupled(self, g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        if self.weight_decay and not self.decoupled:
+            return g + self.weight_decay * p
+        return g
+
+    def _apply(self, p: torch.Tensor, u: torch.Tensor, lr) -> None:
+        if self.weight_decay and self.decoupled:
+            u = u + self.weight_decay * p
+        # optax rounds -lr * u, then adds it: no fused multiply-add.
+        p.sub_(u * lr)
 
     @torch.no_grad()
-    def update_(
-        self,
-        params: Any,
-        grads: Any,
-        state: AdamState,
-        *,
-        clock: torch.Tensor | None = None,
-        lr: torch.Tensor | None = None,
-    ) -> AdamState:
-        """Update ``params`` and the moments in place; returns the state
-        with the count advanced.
-
-        With ``clock`` (the count before this update, a 0-d float32 tensor
-        on the device) and ``lr`` (a 0-d tensor there), the bias corrections
-        are computed on the device from ``clock + 1``, as the JAX step
-        computes them from its count array, so the update can be captured
-        in a CUDA graph and replayed; ``state.count`` is then host
-        bookkeeping only."""
-        b1, b2 = self.b1, self.b2
+    def update_(self, params: Any, grads: Any, state: Any, *,
+                clock: torch.Tensor | None = None, lr: torch.Tensor | None = None) -> Any:
         if clock is None:
             lr = self.lr(state.count)
-            count = state.count + 1
-            c1 = 1.0 - f32_pow(b1, count)
-            c2 = 1.0 - f32_pow(b2, count)
-        else:
-            t = clock + 1.0
-            c1 = 1.0 - torch.pow(b1, t)
-            c2 = 1.0 - torch.pow(b2, t)
-        for p, g, mu, nu in zip(
-            tree_leaves(params), tree_leaves(grads),
-            tree_leaves(state.mu), tree_leaves(state.nu),
-        ):
+        leaves = zip(tree_leaves(params), tree_leaves(grads),
+                     *(tree_leaves(t) for t in opt_slots(state).values()))
+        self._update_leaves(leaves, state.count, clock, lr)
+        return replace(state, count=state.count + 1)
+
+
+class Adam(_Optimizer):
+    """``optax.adam`` (and ``adamw`` with ``decoupled``): ``mu_hat /
+    (sqrt(nu_hat) + eps)``, bias corrections by the incremented count."""
+
+    def __init__(self, learning_rate: float | Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, **decay):
+        super().__init__(learning_rate, **decay)
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Any) -> AdamState:
+        return AdamState(count=0, mu=tree_map(torch.zeros_like, params),
+                         nu=tree_map(torch.zeros_like, params))
+
+    def _update_leaves(self, leaves, count, clock, lr) -> None:
+        b1, b2 = self.b1, self.b2
+        # The bias corrections in float32 from the incremented count, as
+        # optax computes them from its count array.
+        t = (torch.tensor(float(count)) if clock is None else clock) + 1.0
+        c1, c2 = 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+        for p, g, mu, nu in leaves:
+            g = self._coupled(g, p)
             mu.mul_(b1).add_(g, alpha=1.0 - b1)
             nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
-            step = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            if clock is None:
-                p.add_(step, alpha=-lr)
-            else:
-                p.sub_(step * lr)
-        return AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)
+            self._apply(p, (mu / c1) / (torch.sqrt(nu / c2) + self.eps), lr)
+
+
+class Adagrad(_Optimizer):
+    """``optax.adagrad`` (``scale_by_rss``): the accumulator starts at
+    ``initial_accumulator_value``, ``s += g**2``, and the update is ``g *
+    where(s > 0, rsqrt(s + eps), 0)``."""
+
+    def __init__(self, learning_rate: float | Schedule, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7, **decay):
+        super().__init__(learning_rate, **decay)
+        self.initial_accumulator_value, self.eps = initial_accumulator_value, eps
+
+    def init(self, params: Any) -> RssState:
+        return RssState(count=0, sum_of_squares=tree_map(
+            lambda t: torch.full_like(t, self.initial_accumulator_value), params))
+
+    def _update_leaves(self, leaves, count, clock, lr) -> None:
+        for p, g, s in leaves:
+            g = self._coupled(g, p)
+            s.add_(g * g)
+            inv = torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0)
+            self._apply(p, inv * g, lr)
+
+
+class Sgd(_Optimizer):
+    """``optax.sgd`` without momentum: ``u = g``."""
+
+    def init(self, params: Any) -> SgdState:
+        return SgdState(count=0)
+
+    def _update_leaves(self, leaves, count, clock, lr) -> None:
+        for p, g in leaves:
+            self._apply(p, self._coupled(g, p), lr)
+
+
+Optimizer = Adam | Adagrad | Sgd
 
 
 def f32_pow(base: float, exp: int) -> float:
@@ -124,28 +211,30 @@ def f32_pow(base: float, exp: int) -> float:
 
 @dataclass
 class TrainState:
-    """Training state. ``opt_state`` covers the dense (tower) params;
-    ``table_state`` holds the packed per-table Adam moments of the sparse
-    path (``training/sparse.py``)."""
+    """Training state. On the sparse path ``opt_state`` covers the dense
+    (tower) params and ``table_state`` holds the packed per-table Adam
+    moments (``training/sparse.py``); on the dense path ``opt_state``
+    covers every parameter and ``table_state`` is None."""
 
     step: int
     params: Any
-    opt_state: AdamState
+    opt_state: Any
     table_state: Any = None
 
     @classmethod
-    def for_config(cls, params: Any, optimizer: Adam, config: Any) -> "TrainState":
-        """State matching ``config.training.sparse_table_updates``."""
-        if not config.training.effective_sparse_updates():
-            raise NotImplementedError(
-                "the dense train step is not ported yet (ROADMAP.md, Queue 1: the dense "
-                "step); "
-                "use training.sparse_table_updates with the adam optimizer"
-            )
-        return cls.create_sparse(params, optimizer)
+    def create(cls, params: Any, optimizer: Optimizer) -> "TrainState":
+        """State for the dense step: the optimizer over every parameter."""
+        return cls(step=0, params=params, opt_state=optimizer.init(params))
 
     @classmethod
-    def create_sparse(cls, params: Any, optimizer: Adam) -> "TrainState":
+    def for_config(cls, params: Any, optimizer: Optimizer, config: Any) -> "TrainState":
+        """State matching ``config.training.sparse_table_updates``."""
+        if config.training.effective_sparse_updates():
+            return cls.create_sparse(params, optimizer)
+        return cls.create(params, optimizer)
+
+    @classmethod
+    def create_sparse(cls, params: Any, optimizer: Optimizer) -> "TrainState":
         """State for the sparse-table path: optimizer over dense params only,
         explicit Adam moments per embedding table."""
         from twotower_tpu_torch.training.sparse import init_table_state, split_params
@@ -161,16 +250,20 @@ class TrainState:
 
 def init_train_state(
     config: Any,
-    optimizer: Adam,
+    optimizer: Optimizer,
     num_users: int,
     num_items: int,
     mesh: Any = None,
     *,
+    text_embedding_init: Any = None,
     device: str | torch.device | None = None,
 ) -> TrainState:
     """Fresh seeded state on ``device`` (``cuda`` unless the caller asks for
-    the CPU). Single device only. The parameters are drawn on the CPU and
-    moved, so one seed gives the same initial model on every device."""
+    the CPU), laid out for ``training.sparse_table_updates``. Single device
+    only. The parameters are drawn on the CPU and moved, so one seed gives
+    the same initial model on every device. ``text_embedding_init``: an
+    optional ``[padded_rows(text_buckets), embedding_dim]`` text table in
+    place of the random one (``two_tower.init_params``)."""
     from twotower_tpu_torch.models import two_tower
 
     if mesh is not None:
@@ -179,7 +272,9 @@ def init_train_state(
         )
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(config.training.seed)
-    params = two_tower.init_params(gen, config.model, num_users, num_items)
+    params = two_tower.init_params(
+        gen, config.model, num_users, num_items, text_embedding_init=text_embedding_init
+    )
     return TrainState.for_config(tree_map(lambda t: t.to(dev), params), optimizer, config)
 
 
@@ -198,7 +293,7 @@ def _linear(init: float, end: float, steps: int) -> Schedule:
 def _lr_schedule(config: TrainingConfig) -> Schedule:
     """Warmup + optional cosine decay (training.decay_steps) to 1% of
     peak: ``optax.warmup_cosine_decay_schedule`` / ``linear_schedule`` as
-    the JAX package builds them. Shared by the dense Adam and the sparse
+    the JAX package builds them. Shared by every optimizer and the sparse
     lazy-Adam rows (``training.sparse.make_lr_fn``)."""
     peak = config.learning_rate
     warmup = max(config.warmup_steps, 0)
@@ -242,15 +337,17 @@ def lr_at(config: TrainingConfig, count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < warmup, warm, peak * ((1.0 - alpha) * cosine + alpha))
 
 
-def make_optimizer(config: TrainingConfig) -> Adam:
-    """The dense-tower optimizer (reference schema: adam, lr 0.001)."""
-    if config.optimizer.lower() != "adam" or config.weight_decay > 0:
-        raise NotImplementedError(
-            f"optimizer {config.optimizer!r} with weight_decay "
-            f"{config.weight_decay} is not ported yet; only adam without "
-            "weight decay is (ROADMAP.md, Queue 1: the dense step and optimizers)"
-        )
+def make_optimizer(config: TrainingConfig) -> Optimizer:
+    """The optimizer of ``training.optimizer`` (reference schema: adam, lr
+    0.001), as the JAX package chains it (``make_optimizer``,
+    ``twotower_tpu/training/state.py:129-148``): adam, adamw (decoupled
+    ``weight_decay``), adagrad or sgd; any ``weight_decay`` but adamw's is
+    coupled L2 on every leaf."""
     lr: float | Schedule = config.learning_rate
     if config.warmup_steps > 0 or config.decay_steps > 0:
         lr = _lr_schedule(config)
-    return Adam(lr)
+    name = config.optimizer.lower()
+    classes = {"adam": Adam, "adamw": Adam, "adagrad": Adagrad, "sgd": Sgd}
+    if name not in classes:
+        raise ValueError(f"unknown optimizer {config.optimizer!r}")
+    return classes[name](lr, weight_decay=config.weight_decay, decoupled=name == "adamw")

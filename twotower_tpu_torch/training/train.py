@@ -10,7 +10,11 @@ batches streamed from the artifact; ``auto`` lets ``training.rungs`` choose
 on ``--prepared-dir`` runs) with full-corpus validation, early stopping and
 checkpoints -> final artifacts (``config.json``, ``vocab/``, a checkpoint,
 ``train_summary.json`` with the test metrics and the rung that ran), the
-same files the JAX CLI writes. Runs on ``--device cuda`` (the default) or
+same files the JAX CLI writes, and ``item_tokens.npz`` when the model has a
+text tower: ``--synthetic-text`` (or text/title columns in ``--data`` or
+``--prepared-dir``) with ``model.text_buckets > 0`` hashes each item's
+first text into ``model.text_tokens`` n-gram ids
+(``features/text_encoder.py``). Runs on ``--device cuda`` (the default) or
 ``--device cpu``.
 
 The flags of the JAX CLI that belong to slices not ported yet are kept and
@@ -36,8 +40,8 @@ UNPORTED = {
     "shard_input": "ROADMAP.md, Queue 1: multi-GPU",
     "mesh": "ROADMAP.md, Queue 1: multi-GPU",
     "coordinator": "ROADMAP.md, Queue 1: multi-GPU",
-    "synthetic_text": "ROADMAP.md, Queue 1: text towers",
 }
+TRANSFORMER_ENCODER = "ROADMAP.md, Queue 1: the transformer text encoder"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -101,7 +105,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-interactions", type=int, default=100_000)
     p.add_argument(
         "--synthetic-text", action="store_true",
-        help="generate text/title columns too (text tower not ported yet)",
+        help="generate text/title columns too (exercises the text tower)",
     )
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--resume", action="store_true", help="resume from latest checkpoint")
@@ -162,11 +166,42 @@ def load_interactions(args):
             num_users=args.synthetic_users,
             num_items=args.synthetic_items,
             num_interactions=args.synthetic_interactions,
+            with_text=getattr(args, "synthetic_text", False),
             device=getattr(args, "device", None),
         )
     import pandas as pd
 
     return from_dataframe(pd.read_parquet(args.data))
+
+
+def _resolve_text_tower(config: Config, has_text: bool):
+    """The item text encoder for data with text, resolved before the config
+    snapshot: ``(config, encoder, text_embedding_init)`` (JAX
+    ``train.py:171-198``). ``text_encoder="hashed"`` with ``text_buckets >
+    0`` gives a ``HashedNgramEncoder`` and a random text table;
+    ``"transformer"`` exits, as it is not ported yet."""
+    if not has_text:
+        return config, None, None
+    if config.model.text_encoder == "transformer":
+        raise SystemExit(
+            f"model.text_encoder='transformer' is not ported yet ({TRANSFORMER_ENCODER})"
+        )
+    if config.model.text_buckets <= 0:
+        return config, None, None
+    from twotower_tpu_torch.features.text_encoder import HashedNgramEncoder
+
+    encoder = HashedNgramEncoder(
+        num_buckets=config.model.text_buckets, max_tokens=config.model.text_tokens
+    )
+    return config, encoder, None
+
+
+def _log_text_tower(config: Config, item_tokens) -> None:
+    if item_tokens is not None:
+        logger.info(
+            "text tower on (%s): %d buckets x %d tokens/item",
+            config.model.text_encoder, config.model.text_buckets, config.model.text_tokens,
+        )
 
 
 class _EncodedColumns:
@@ -214,12 +249,23 @@ def run(args, config: Config) -> dict:
         len(splits.train), len(splits.val), len(splits.test), num_users, num_items,
     )
     ckpt_dir, manager, writers = _outputs(args, config)
+    config, encoder, text_embedding_init = _resolve_text_tower(
+        config, splits.train.text is not None or splits.train.title is not None
+    )
+    item_tokens = None
+    if encoder is not None:
+        item_tokens = encoder.encode_per_item(
+            data.item_idx, data.text, num_items, titles=data.title
+        )
+    _log_text_tower(config, item_tokens)
     return _fit_and_summarize(
         args,
         config,
         num_users=num_users,
         num_items=num_items,
         log_q=np.log(pp.vocab.items.frequencies + 1e-12),
+        item_tokens=item_tokens,
+        text_embedding_init=text_embedding_init,
         ckpt_dir=ckpt_dir,
         manager=manager,
         writers=writers,
@@ -281,6 +327,9 @@ def _run_prepared(args, config: Config) -> dict:
     if args.shuffle_buffer is None:
         args.shuffle_buffer = 1 << 23
     ckpt_dir, manager, writers = _outputs(args, config)
+    config, encoder, text_embedding_init = _resolve_text_tower(config, dataset.has_text)
+    item_tokens = dataset.build_item_tokens(encoder)
+    _log_text_tower(config, item_tokens)
 
     train_cols = None
     train_pipeline = None
@@ -303,6 +352,8 @@ def _run_prepared(args, config: Config) -> dict:
         num_users=num_users,
         num_items=num_items,
         log_q=dataset.log_q(),
+        item_tokens=item_tokens,
+        text_embedding_init=text_embedding_init,
         ckpt_dir=ckpt_dir,
         manager=manager,
         writers=writers,
@@ -321,6 +372,8 @@ def _fit_and_summarize(
     num_users: int,
     num_items: int,
     log_q,
+    item_tokens,
+    text_embedding_init,
     ckpt_dir: Path,
     manager,
     writers,
@@ -343,8 +396,10 @@ def _fit_and_summarize(
     # trained shape from it without the overrides (load_config_for_checkpoint).
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     (ckpt_dir / "config.json").write_text(config.to_json())
+    if item_tokens is not None:
+        np.savez_compressed(ckpt_dir / "item_tokens.npz", tokens=item_tokens)
 
-    evaluator = Evaluator(config, num_items, device=args.device)
+    evaluator = Evaluator(config, num_items, item_tokens=item_tokens, device=args.device)
     val_u, val_i = val_arrays
     cap = getattr(args, "val_rows", None)
     if cap and cap < len(val_u):
@@ -367,7 +422,9 @@ def _fit_and_summarize(
             writers=writers,
             checkpoint_manager=manager,
             shutdown=shutdown,
+            item_tokens=item_tokens,
             num_items=num_items,
+            text_embedding_init=text_embedding_init,
             device=args.device,
         )
         if args.device_loop:

@@ -11,8 +11,13 @@ ints (``state.pt``) and loaded with ``weights_only=True``: no pickled objects.
 The state layout is the bridge's (``bridge.py``) with tensors in place of
 numpy arrays::
 
-    {"step": int, "params": {...}, "opt_state": {"count": int, "mu": {...},
-     "nu": {...}}, "table_state": {table: {"moments": [rows, 2E]}}}
+    {"step": int, "params": {...}, "opt_state": {"count": int, <slots>},
+     "table_state": {table: {"moments": [rows, 2E]}} or None}
+
+``<slots>`` are the optimizer's (``training.state.opt_state_to_tree``):
+``mu`` and ``nu`` for adam and adamw, ``sum_of_squares`` for adagrad, none
+for sgd. An adam checkpoint therefore has the layout it had before the
+other optimizers existed, and restores as it did.
 """
 
 from __future__ import annotations
@@ -27,7 +32,12 @@ from typing import Any
 import torch
 
 from twotower_tpu_torch.logging_utils import get_logger
-from twotower_tpu_torch.training.state import AdamState, TrainState, tree_map
+from twotower_tpu_torch.training.state import (
+    TrainState,
+    opt_state_from_tree,
+    opt_state_to_tree,
+    tree_map,
+)
 
 logger = get_logger(__name__)
 
@@ -40,21 +50,16 @@ def state_to_tree(state: TrainState) -> dict:
     return {
         "step": int(state.step),
         "params": state.params,
-        "opt_state": {
-            "count": int(state.opt_state.count),
-            "mu": state.opt_state.mu,
-            "nu": state.opt_state.nu,
-        },
+        "opt_state": opt_state_to_tree(state.opt_state),
         "table_state": state.table_state,
     }
 
 
 def tree_to_state(tree: dict) -> TrainState:
-    opt = tree["opt_state"]
     return TrainState(
         step=int(tree["step"]),
         params=tree["params"],
-        opt_state=AdamState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"]),
+        opt_state=opt_state_from_tree(tree["opt_state"]),
         table_state=tree["table_state"],
     )
 
@@ -71,6 +76,9 @@ def _check_like(loaded: Any, template: Any, path: str = "state") -> None:
             raise ValueError(f"checkpoint {path}: length differs from the template")
         for i, (a, b) in enumerate(zip(loaded, template)):
             _check_like(a, b, f"{path}/{i}")
+    elif template is None:
+        if loaded is not None:
+            raise ValueError(f"checkpoint {path}: holds a value the template has not")
     elif isinstance(template, torch.Tensor):
         if not isinstance(loaded, torch.Tensor) or loaded.shape != template.shape:
             raise ValueError(
