@@ -137,6 +137,30 @@
    RetrievalIndex.from_checkpoint over item_tokens.npz: tpu_mips_exact equal
    to the Evaluator's search (with the same tokens) bit for bit, and the
    reduced-precision corpora's recall@100 (bfloat16 at least 0.95).
+7e. The transformer text encoder at bert-base-uncased's published widths
+   (vocab 30,522, hidden 768, 12 layers, 12 heads, intermediate 3,072, 512
+   positions) with random weights from seed 0, written as a local HF
+   directory (a WordPiece vocab.txt of BERT's specials, the synthetic
+   text's words and filler pieces; a config-built BertModel): train-model
+   --synthetic-text on phase 7d's draw with model.text_encoder=transformer
+   on the device loop for one epoch (the text table 30,523 buckets, padded
+   to 30,592 rows x 128, initialised from the word embeddings' PCA), then
+   evaluate-model, with phase 7's checks (launches = steps, recall@10 at
+   least 10x random). Checks: the text table at step 0 equals
+   word_embedding_init(128) bit for bit; encode_vectors over the item texts,
+   called on train-model's own encoder with no device named, moves the
+   host-loaded model to the card (checked) and gives the same vectors at
+   batch 32 and 128 (rtol 1e-4 / atol 1e-5) and, for 256 items with
+   device="cpu", the CPU's (rtol 1e-3 / atol 1e-4: 12 float32 layers
+   summed in other orders). Prints the host seconds of the
+   tokenizer and model load, the PCA and encode_per_item, and
+   encode_vectors' items/s.
+7f. orchestrate-pipeline on the card's host: an Amazon-schema raw parquet
+   (user_id, parent_asin, rating, title, text, timestamp) of a 200k-row
+   synthetic draw, orchestrate-pipeline --skip-download --eda (prepare,
+   explore) and again (the resume skips prepare), then train-model
+   --prepared-dir --exec device-loop for one epoch: launch counts set to 0
+   just before and read just after equal its steps.
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -164,6 +188,15 @@
    warmup. torch.profiler: device time by kernel of the bfloat16 search at
    B=1 and B=256, and of 256 requests at concurrency 32 with the device's
    busy share. Prints one {"serving": ...} JSON line.
+8b. The native CPU index (serving/cpu_index.py: native/flat_index.cpp built
+   with g++ on the card's host; a NumPy backend fails the phase) over phase
+   7's trained float32 corpus (exported by the exact index, loaded with
+   from_npz) against tpu_mips_exact on the card for 256 test users' query
+   embeddings at k=100: scores rtol 1e-5 plus atol 1e-5 x the largest
+   |score| (a float32 dot product's rounding scales with the norms, and a
+   top-100 crosses 0), ids equal outside ranks tied within that atol.
+   Prints the native search's host ms and threads beside the card's device
+   ms, as one {"cpu_index": ...} JSON line.
 9. Times: per kernel, at the main path's shape, the device time of one
    call, beside its bound, its plain version and a library yardstick (one
    torch.matmul(u, v.T) at the same shape, which the port never calls).
@@ -182,7 +215,7 @@
    Each row also carries its launches in phase 7's train-model run, in
    phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
    serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
-   replayed text epoch and in phase 7d's train-model run.
+   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs.
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -1513,6 +1546,188 @@ def run_text_slice(card: str) -> dict:
     return {"launches": row_launches(launches), "summary": summary, "serving": serving}
 
 
+# Phase 7e: bert-base-uncased's published widths (its config.json), random
+# weights from seed 0, so nothing is downloaded.
+BERT_BASE = dict(vocab_size=30_522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072, max_position_embeddings=512)
+# The words of --synthetic-text's draw (data/synthetic.py), one vocab entry each.
+SYNTHETIC_WORDS = ("great", "terrible", "quality", "product", "love", "broken", "works", "fast",
+                   "shipping", "recommend", "money", "waste")
+# encode_vectors, card against CPU: float32 on both with TF32 off, but 12
+# layers of products, softmaxes and layer norms summed in other orders (and
+# SDPA's CUDA route against its CPU one) over hidden values of order 1.
+VECTORS_CARD_CPU_TOL = dict(rtol=1e-3, atol=1e-4)
+VECTORS_BATCH_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def write_bert_dir(path: Path) -> Path:
+    """A local HF model directory at ``BERT_BASE``'s widths with random
+    weights (seed 0): a WordPiece ``vocab.txt`` of BERT's specials at
+    bert-base-uncased's ids, the synthetic text's words and filler pieces;
+    a ``tokenizer_config.json`` naming ``BertTokenizer``; and a
+    config-built ``BertModel``, saved as ``train-model``'s
+    ``model.text_model_path`` loads it."""
+    import transformers
+
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", *SYNTHETIC_WORDS])
+    vocab += [f"piece{i}" for i in range(BERT_BASE["vocab_size"] - len(vocab))]
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    (path / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "BertTokenizer", "do_lower_case": True,
+        "model_max_length": BERT_BASE["max_position_embeddings"]}))
+    torch.manual_seed(0)
+    transformers.BertModel(transformers.BertConfig(**BERT_BASE)).save_pretrained(path)
+    return path
+
+
+@contextlib.contextmanager
+def spied(owner, name: str, into: list, keep=lambda out: out):
+    """Wraps ``owner.name``: each call appends (positional arguments, keyword
+    arguments, ``keep(result)``, host seconds) to ``into``."""
+    orig = getattr(owner, name)
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        into.append((args, kwargs, keep(out), time.perf_counter() - t0))
+        return out
+
+    setattr(owner, name, spy)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def run_transformer_slice(card: str) -> dict:
+    """Phase 7e: train-model with model.text_encoder=transformer at BERT-base's
+    widths on phase 7d's draw (the device loop, one epoch), evaluate-model on
+    its checkpoint (``train_and_evaluate``'s checks: launches = steps, recall
+    at least 10x random); the text table at step 0 equal to the PCA init bit
+    for bit; then encode_vectors over the item texts on the card (batch 32 =
+    batch 128, and the card = the CPU for 256 items), through the encoder
+    train-model built from the model directory, with no device named."""
+    from twotower_tpu_torch.features import transformer_encoder as te
+    from twotower_tpu_torch.features.text_encoder import select_first_item_texts
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.training import train as train_cli
+
+    t0 = time.perf_counter()
+    model_dir = write_bert_dir(fresh_dir(ROOT / "build" / "chip_smoke_bert"))
+    t_write = time.perf_counter() - t0
+    resolved, per_item, tables = [], [], []
+    with spied(train_cli, "_resolve_text_tower", resolved), \
+            spied(te.TransformerTextEncoder, "encode_per_item", per_item), \
+            spied(two_tower, "init_params", tables,
+                  keep=lambda p: p["text_embedding"].detach().cpu().clone()):
+        summary, launches, _, _ = train_and_evaluate(
+            ROOT / "build" / "chip_smoke_transformer",
+            TEXT_DATA + ["--synthetic-text", "--exec", "device-loop"], TEXT_DATA,
+            "transformer text tower",
+            overrides=["model.text_encoder=transformer", f"model.text_model_path={model_dir}",
+                       "training.epochs=1"])
+    (_, _, (config, encoder, init), t_resolve) = resolved[0]
+    rows = two_tower.padded_rows(BERT_BASE["vocab_size"] + 1)
+    if (summary["execution_rung"] != "device_loop"
+            or config.model.text_buckets != BERT_BASE["vocab_size"] + 1
+            or init is None or init.shape != (rows, MAIN_D)):
+        raise RuntimeError(f"transformer slice: rung {summary['execution_rung']}, buckets "
+                           f"{config.model.text_buckets}, init "
+                           f"{None if init is None else init.shape}")
+    if not np.array_equal(tables[0][2].numpy(), init):
+        raise RuntimeError("the text table at step 0 differs from word_embedding_init's")
+    t1 = time.perf_counter()
+    again = encoder.word_embedding_init(MAIN_D)
+    t_pca = time.perf_counter() - t1
+    if not np.array_equal(again, init):
+        raise RuntimeError("word_embedding_init is not deterministic")
+    (args, kwargs, _, t_per_item) = per_item[0]
+    _, texts = select_first_item_texts(*args[1:], **kwargs)  # args[0] is the encoder
+    texts = np.array(texts, dtype=object)
+    log(f"  BERT-base dir written in {t_write:.1f} s; text buckets {config.model.text_buckets} "
+        f"(table {init.shape}); resolve (tokenizer, model, PCA) {t_resolve:.2f} s, "
+        f"word_embedding_init(128) again {t_pca:.3f} s, encode_per_item over "
+        f"{len(args[1])} rows -> {len(texts)} item texts {t_per_item:.2f} s (host); text "
+        "table at step 0 = init bit for bit")
+
+    # train-model's own encoder, its model loaded from model_dir on the host:
+    # encode_vectors with no device moves it to the card and runs it there.
+    encoder.encode_vectors(texts[:128])  # warm-up
+    model_device = next(encoder._require_model().parameters()).device
+    if model_device.type != "cuda":
+        raise RuntimeError(f"encode_vectors ran the model on {model_device}, not the card")
+    t2 = time.perf_counter()
+    vec = encoder.encode_vectors(texts, batch_size=128)
+    t_vec = time.perf_counter() - t2
+    vec32 = encoder.encode_vectors(texts, batch_size=32)
+    vec_cpu = encoder.encode_vectors(texts[:256], batch_size=128, device="cpu")
+    if vec.shape != (len(texts), BERT_BASE["hidden_size"]) or not np.isfinite(vec).all():
+        raise RuntimeError(f"encode_vectors: shape {vec.shape}, finite {np.isfinite(vec).all()}")
+    np.testing.assert_allclose(vec32, vec, **VECTORS_BATCH_TOL,
+                               err_msg="encode_vectors batch 32 vs 128 on the card")
+    np.testing.assert_allclose(vec[:256], vec_cpu, **VECTORS_CARD_CPU_TOL,
+                               err_msg="encode_vectors card vs CPU")
+    log(f"  encode_vectors: {len(texts)} item texts in {t_vec:.2f} s at batch 128, "
+        f"{len(texts) / t_vec:.1f} items/s ({card}); "
+        f"batch 32 vs 128 max abs diff {float(np.abs(vec32 - vec).max()):.3g}; card vs CPU "
+        f"(256 items) max abs diff {float(np.abs(vec[:256] - vec_cpu).max()):.3g}")
+    del encoder
+    torch.cuda.empty_cache()
+    return {"launches": row_launches(launches), "items_per_s": len(texts) / t_vec}
+
+
+def run_orchestrate_slice(card: str) -> dict:
+    """Phase 7f: an Amazon-schema raw parquet from the synthetic draw,
+    orchestrate-pipeline --skip-download --eda twice (the second run resumes:
+    prepare skipped), then train-model --prepared-dir on the device loop for
+    one epoch, its launches equal to its steps."""
+    import pandas as pd
+
+    from twotower_tpu_torch.data import generate_interactions
+    from twotower_tpu_torch.data.orchestrate import main as orchestrate_main
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.train import main as train_main
+
+    base = fresh_dir(ROOT / "build" / "chip_smoke_orchestrate")
+    raw, prepared, ckpt = base / "raw", base / "prepared", base / "ckpt"
+    raw.mkdir(parents=True)
+    t0 = time.perf_counter()
+    data = generate_interactions(num_users=20_000, num_items=10_000, num_interactions=200_000,
+                                 with_text=True, device="cuda")
+    pd.DataFrame({"user_id": data.user_id, "parent_asin": data.item_id, "rating": data.rating,
+                  "title": data.title, "text": data.text, "timestamp": data.timestamp},
+                 ).to_parquet(raw / "Synthetic_5core.parquet")
+    t_raw = time.perf_counter() - t0
+    argv = ["--skip-download", "--raw-dir", str(raw), "--processed-dir", str(prepared), "--eda",
+            "--max-per-category", "1000000"]
+    runs = [run_cli(orchestrate_main, argv) for _ in range(2)]
+    status = [{k: v["status"] for k, v in r["stages"].items()} for r in runs]
+    want = [{"download": "skipped", "prepare": "ok", "eda": "ok"},
+            {"download": "skipped", "prepare": "skipped", "eda": "ok"}]
+    if status != want or not all(r["ok"] for r in runs):
+        raise RuntimeError(f"orchestrate-pipeline stages {status}, want {want}")
+    kernels.reset_launch_counts()
+    summary = run_cli(train_main, ["--device", "cuda", "--prepared-dir", str(prepared),
+                                   "--exec", "device-loop", "--checkpoint-dir", str(ckpt),
+                                   "--no-eval", "--writers", "jsonl", "--override",
+                                   f"training.batch_size={MAIN_B}", "training.epochs=1"])
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    steps = int(epoch_records(ckpt)[-1]["step"])
+    if summary["execution_rung"] != "device_loop" or any(v != steps for v in launches.values()):
+        raise RuntimeError(f"orchestrated train-model: rung {summary['execution_rung']}, "
+                           f"launches {launches}, {steps} steps")
+    stats = json.loads((prepared / "dataset_stats.json").read_text())
+    log(f"  raw parquet ({len(data.user_id)} rows) {t_raw:.1f} s; orchestrate-pipeline: "
+        f"{runs[0]['stages']}, then (resumed) {runs[1]['stages']}; artifact "
+        f"{stats['num_interactions']} rows, {stats['num_users']} users x {stats['num_items']} "
+        f"items; train-model --prepared-dir (device loop, one epoch): {steps} steps, launches "
+        f"{launches} (one a step), train_examples_per_sec {summary['train_examples_per_sec']} "
+        f"({card})")
+    return {"launches": row_launches(launches)}
+
+
 # The config2 oracle corpus, its prepared artifact and its exact ceiling are
 # deterministic numpy: the JAX package's record of its config2 run
 # (benchmarks/results/oracle_parity_config2.json: the generator's stats,
@@ -1674,18 +1889,19 @@ class IdVocab:
         self.users, self.items = self.Ids(num_users), self.Ids(num_items)
 
 
-def same_topk(ours, ref, what: str, atol: float = 0.0) -> int:
-    """Scores within rtol 1e-5 (and ``atol``); ids equal outside exactly tied
-    scores: where the ids differ, ours holds the reference's score of that
-    rank in the reference's list, or ties its last score. Returns the number
-    of tied ranks whose ids differ."""
+def same_topk(ours, ref, what: str, atol: float = 0.0, tie_atol: float = 0.0) -> int:
+    """Scores within rtol 1e-5 (and ``atol``); ids equal outside tied scores
+    (exactly tied, or within ``tie_atol`` where the two sides sum in other
+    orders): where the ids differ, ours holds an id the reference ranks at a
+    score tied with that rank's, or one past its list where that rank ties
+    its last score. Returns the number of tied ranks whose ids differ."""
     (v, i), (rv, ri) = (np.asarray(ours[0]), np.asarray(ours[1])), (np.asarray(ref[0]),
                                                                     np.asarray(ref[1]))
     np.testing.assert_allclose(v, rv, rtol=1e-5, atol=atol, err_msg=what)
     flips = 0
     for r in range(len(i)):
         for j in np.nonzero(i[r] != ri[r])[0]:
-            tied = rv[r] == rv[r, j]
+            tied = np.abs(rv[r] - rv[r, j]) <= tie_atol
             if not (i[r, j] in ri[r][tied] or (tied[-1] and i[r, j] not in ri[r])):
                 raise RuntimeError(f"{what}: row {r} rank {j}: id {i[r, j]} against "
                                    f"{ri[r, j]} outside a tie")
@@ -1843,6 +2059,61 @@ def check_serving_trained(ckpt: Path, users: np.ndarray, best_step: int) -> dict
     del params
     torch.cuda.empty_cache()
     return {"num_items": ni, "num_users": nu, "recall_at_100": recalls}
+
+
+CPU_INDEX_QUERIES = 256
+
+
+def check_cpu_index(ckpt: Path, users: np.ndarray, card: str) -> dict:
+    """Phase 8b: the native CPU index (serving/cpu_index.py, built with g++ on
+    the card's host) over a trained checkpoint's float32 corpus, exported by
+    the exact index and loaded with ``from_npz``, against the card's
+    tpu_mips_exact search on the same query embeddings at k=100: scores rtol
+    1e-5 plus atol 1e-5 x the largest |score|, ids equal outside ranks tied
+    within that atol. A NumPy backend fails the phase."""
+    from twotower_tpu_torch.config import load_config_for_checkpoint
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.serving import CpuFlatIndex, RetrievalIndex
+
+    base = load_config_for_checkpoint(ckpt)
+    exact = RetrievalIndex.from_checkpoint(serving_config("tpu_mips_exact", "float32", base),
+                                           ckpt, device="cuda")
+    path = fresh_dir(ROOT / "build" / "chip_smoke_cpu_index") / "corpus.npz"
+    exact.export_corpus(path)
+    t0 = time.perf_counter()
+    index = CpuFlatIndex.from_npz(path)
+    t_build = time.perf_counter() - t0
+    if index.backend != "native":
+        raise RuntimeError(f"CpuFlatIndex took the {index.backend} backend, not the native one")
+    with torch.no_grad():
+        query = two_tower.embed_users(exact.params, torch.as_tensor(users[:CPU_INDEX_QUERIES])
+                                      .cuda(), base.model).float()
+    q = query.cpu().numpy()
+    ref = exact.recommend_by_embedding(q, SERVE_K)
+    got = index.search(q, SERVE_K)
+    # A float32 dot product's rounding scales with |q| |c|, not with the
+    # score, and a top-100 crosses 0: rtol 1e-5 of the largest score too.
+    tol = 1e-5 * float(np.abs(ref[0]).max())
+    flips = same_topk(got, ref, "native CPU index vs tpu_mips_exact", atol=tol, tie_atol=tol)
+    native_ms = statistics.median(
+        _wall_ms(lambda: index.search(q, SERVE_K)) for _ in range(5))
+    card_ms = time_ms(lambda: exact._search(query, SERVE_K))
+    log(f"  native index ({index.num_threads} threads, built and loaded in {t_build:.2f} s) over "
+        f"{index.corpus.shape} float32, {len(q)} queries, k={SERVE_K}: scores within rtol 1e-5 "
+        f"+ atol {tol:.3g} of tpu_mips_exact, max abs diff "
+        f"{float(np.abs(got[0] - ref[0]).max()):.3g}, ids equal outside ties ({flips} tied "
+        f"ranks differ); native {native_ms:.2f} ms (host, median of 5), card "
+        f"{card_ms:.4f} ms (device, CUDA events) ({card})")
+    del exact
+    torch.cuda.empty_cache()
+    return {"threads": index.num_threads, "native_ms": native_ms, "card_ms": card_ms,
+            "tied_flips": flips}
+
+
+def _wall_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def recall_at(ids: np.ndarray, exact: np.ndarray) -> float:
@@ -2123,12 +2394,22 @@ def main() -> int:
     log("phase 7d: train-model --synthetic-text, evaluate-model and exact serving")
     text_slice = run_text_slice(card)
 
+    log("phase 7e: train-model with the transformer text encoder at BERT-base's widths")
+    transformer = run_transformer_slice(card)
+
+    log("phase 7f: orchestrate-pipeline --skip-download, then train-model --prepared-dir")
+    orchestrated = run_orchestrate_slice(card)
+
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
     serve_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     log(f"  launches of the ported kernels while serving: {serve_launches} (serving runs none)")
     log(json.dumps({"serving": serving}))
+
+    log("phase 8b: the native CPU index against the card's exact index")
+    cpu_index = check_cpu_index(ROOT / "build" / "chip_smoke_slice", test_users, card)
+    log(json.dumps({"cpu_index": cpu_index}))
 
     log("phase 9: kernel times")
     rows = kernel_times(errs, launches, report)
@@ -2142,6 +2423,8 @@ def main() -> int:
         row["launches_dense_step"] = dense["adam"]["launches"][names[row["name"]]]
         row["launches_text_step"] = text["launches"][names[row["name"]]]
         row["launches_text_train_model"] = text_slice["launches"][row["name"]]
+        row["launches_transformer_train_model"] = transformer["launches"][row["name"]]
+        row["launches_orchestrated_train_model"] = orchestrated["launches"][row["name"]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "

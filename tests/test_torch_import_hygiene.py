@@ -69,7 +69,53 @@ def test_hygiene_check_sees_the_whole_package():
             "twotower_tpu_torch/tools/oracle_parity.py",
             "twotower_tpu_torch/tools/oracle_variants.py",
             "twotower_tpu_torch/features/text_encoder.py",
+            "twotower_tpu_torch/features/transformer_encoder.py",
+            "twotower_tpu_torch/serving/cpu_index.py",
+            "twotower_tpu_torch/data/amazon.py",
+            "twotower_tpu_torch/data/download.py",
+            "twotower_tpu_torch/data/explore.py",
+            "twotower_tpu_torch/data/orchestrate.py",
+            "twotower_tpu_torch/data/migrate.py",
             "twotower_tpu_torch/bridge.py"} <= names
+
+
+# Packages the port uses only where it needs them (loading a HF model
+# directory, fetching from the Hub, charts): never imported at module level,
+# so the port imports on a machine without them (the H100 machine has none).
+OPTIONAL = {"transformers", "datasets", "huggingface_hub", "matplotlib"}
+
+
+def test_optional_packages_are_imported_lazily():
+    eager = {p.relative_to(ROOT).as_posix(): _imported_roots(p, module_level=True) & OPTIONAL
+             for p in PORT_FILES}
+    assert not {k: v for k, v in eager.items() if v}
+    lazy = {p.name for p in PORT_FILES if _imported_roots(p) & OPTIONAL}
+    assert {"transformer_encoder.py", "amazon.py", "explore.py"} <= lazy
+
+
+def test_cpu_index_builds_the_ports_own_source():
+    """``serving/cpu_index.py`` compiles ``twotower_tpu_torch/native/flat_index.cpp``
+    (its own copy, shipped as package data), not the JAX package's."""
+    from twotower_tpu_torch.serving import cpu_index
+
+    assert cpu_index.SRC == ROOT / "twotower_tpu_torch" / "native" / "flat_index.cpp"
+    assert cpu_index.SRC.exists() and "extern \"C\"" in cpu_index.SRC.read_text()
+    assert cpu_index.library_path().parent == ROOT / "build" / "native"
+    assert '"twotower_tpu_torch.native" = ["*.cpp"]' in (ROOT / "pyproject.toml").read_text()
+
+
+def test_roadmap_citations_name_queue_1_items():
+    """Every "ROADMAP.md, Queue 1: <item>" that a port message cites names a
+    bold item of ROADMAP.md's Queue 1 (serving/api.py cited "serving" before
+    Queue 1 had such an item)."""
+    import re
+
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    queue = roadmap[roadmap.index("### Queue 1"):roadmap.index("### Queue 2")]
+    items = {m.strip(" .:").lower() for m in re.findall(r"\*\*([^*]+)\*\*", queue)}
+    cited = {m.strip().lower() for p in PORT_FILES
+             for m in re.findall(r"ROADMAP\.md, Queue 1: ([\w -]+)", p.read_text())}
+    assert cited and all(any(i.startswith(c) for i in items) for c in cited), (cited, items)
 
 
 def _small():

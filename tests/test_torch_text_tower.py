@@ -391,8 +391,17 @@ def test_synthetic_text_train_evaluate_serve(tmp_path, capsys, exec_rung):
 
 
 def test_transformer_text_encoder_exits_naming_roadmap(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        train_main([*CLI_DATA, "--device", "cpu", "--checkpoint-dir", str(tmp_path / "c"),
-                    "--synthetic-text", "--override", *CLI_OVERRIDES,
-                    "model.text_encoder=transformer", "model.text_model_path=/nonexistent"])
-    assert "ROADMAP.md, Queue 1: the transformer text encoder" in str(e.value)
+    """The transformer encoder is ported (``tests/test_torch_transformer_encoder.py``):
+    train-model no longer exits naming the ROADMAP item. A model directory
+    that does not exist now fails where the JAX CLI fails, loading the
+    tokenizer, with the same exception type."""
+    from twotower_tpu.training.train import main as jax_train_main
+
+    args = [*CLI_DATA, "--synthetic-text", "--override", *CLI_OVERRIDES,
+            "model.text_encoder=transformer", "model.text_model_path=/nonexistent"]
+    with pytest.raises(Exception) as jax_err:
+        jax_train_main([*args, "--checkpoint-dir", str(tmp_path / "j")])
+    with pytest.raises(Exception) as e:
+        train_main([*args, "--device", "cpu", "--checkpoint-dir", str(tmp_path / "c")])
+    assert type(e.value) is type(jax_err.value) and not isinstance(e.value, SystemExit)
+    assert "/nonexistent" in str(e.value) and "ROADMAP" not in str(e.value)

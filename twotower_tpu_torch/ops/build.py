@@ -59,6 +59,23 @@ def _digest(source: str) -> str:
     return h.hexdigest()
 
 
+def compile_library(cmd: list[str], out: Path) -> str:
+    """Run ``cmd + ["-o", tmp]`` and rename ``tmp`` to ``out``: a concurrent
+    build never loads a half-written library. Returns the compiler's
+    output; raises ``RuntimeError`` with it if the compiler fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=out.suffix, dir=out.parent)
+    os.close(fd)
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"{Path(cmd[0]).name} failed for {out.name}:\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
 def _build(source: str) -> Path:
     src = CSRC / source
     digest = _digest(source)
@@ -67,23 +84,8 @@ def _build(source: str) -> Path:
     if out.exists():
         build_logs.setdefault(source, log.read_text() if log.exists() else "(cached build)")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build to a temporary name and rename: a concurrent build never loads
-    # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run(
-        [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(src)],
-        capture_output=True,
-        text=True,
-        check=False,
-    )
-    build_logs[source] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    build_logs[source] = compile_library([cuda_tool("nvcc"), *NVCC_FLAGS, str(src)], out)
     log.write_text(build_logs[source])
-    os.replace(tmp, out)
     return out
 
 

@@ -14,8 +14,10 @@ same files the JAX CLI writes, and ``item_tokens.npz`` when the model has a
 text tower: ``--synthetic-text`` (or text/title columns in ``--data`` or
 ``--prepared-dir``) with ``model.text_buckets > 0`` hashes each item's
 first text into ``model.text_tokens`` n-gram ids
-(``features/text_encoder.py``). Runs on ``--device cuda`` (the default) or
-``--device cpu``.
+(``features/text_encoder.py``); with ``model.text_encoder=transformer`` a
+local HF tokenizer gives the ids and its model's word embeddings the text
+table's init (``features/transformer_encoder.py``). Runs on ``--device
+cuda`` (the default) or ``--device cpu``.
 
 The flags of the JAX CLI that belong to slices not ported yet are kept and
 exit with a message naming the ROADMAP.md item (``UNPORTED``).
@@ -41,7 +43,6 @@ UNPORTED = {
     "mesh": "ROADMAP.md, Queue 1: multi-GPU",
     "coordinator": "ROADMAP.md, Queue 1: multi-GPU",
 }
-TRANSFORMER_ENCODER = "ROADMAP.md, Queue 1: the transformer text encoder"
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -175,25 +176,34 @@ def load_interactions(args):
 
 
 def _resolve_text_tower(config: Config, has_text: bool):
-    """The item text encoder for data with text, resolved before the config
-    snapshot: ``(config, encoder, text_embedding_init)`` (JAX
-    ``train.py:171-198``). ``text_encoder="hashed"`` with ``text_buckets >
-    0`` gives a ``HashedNgramEncoder`` and a random text table;
-    ``"transformer"`` exits, as it is not ported yet."""
+    """The item text encoder for data with text and its pretrained text-table
+    init, resolved before the config snapshot: ``(config, encoder,
+    text_embedding_init)`` (JAX ``train.py:171-198``). ``text_encoder=
+    "hashed"`` with ``text_buckets > 0`` gives a ``HashedNgramEncoder`` and
+    a random text table; ``"transformer"`` a ``TransformerTextEncoder``,
+    ``model.text_buckets`` resolved to its tokenizer's vocabulary + 1 and,
+    with ``model.text_pretrained_init``, the PCA-projected word embeddings
+    as the table's init (a model that cannot be loaded keeps the random
+    init, with a warning)."""
     if not has_text:
         return config, None, None
-    if config.model.text_encoder == "transformer":
-        raise SystemExit(
-            f"model.text_encoder='transformer' is not ported yet ({TRANSFORMER_ENCODER})"
-        )
-    if config.model.text_buckets <= 0:
-        return config, None, None
-    from twotower_tpu_torch.features.text_encoder import HashedNgramEncoder
+    from twotower_tpu_torch.features.transformer_encoder import build_text_encoder
 
-    encoder = HashedNgramEncoder(
-        num_buckets=config.model.text_buckets, max_tokens=config.model.text_tokens
-    )
-    return config, encoder, None
+    encoder = build_text_encoder(config.model)
+    text_embedding_init = None
+    if encoder is not None and config.model.text_encoder == "transformer":
+        if config.model.text_buckets != encoder.num_buckets:
+            # evaluate-model and serve-model rebuild the table from the snapshot.
+            config = config.with_overrides({"model.text_buckets": encoder.num_buckets})
+        if config.model.text_pretrained_init:
+            try:
+                text_embedding_init = encoder.word_embedding_init(config.model.embedding_dim)
+            except (OSError, ValueError) as exc:
+                logger.warning(
+                    "no pretrained weights at %s (%s); text table keeps random init",
+                    config.model.text_model_path, exc,
+                )
+    return config, encoder, text_embedding_init
 
 
 def _log_text_tower(config: Config, item_tokens) -> None:
