@@ -17,7 +17,8 @@
    tile and slice edge; B=1000 at D=20, depth not a multiple of 8; B=600
    at D=30, rows not 16-byte aligned, so 4-byte copies; B=512 at D=256,
    deeper than one tile, unit-norm rows; B=4096 at D=64, unit-norm rows, the
-   depth phase 7c trains at). Tolerances: forward outputs rtol 1e-4
+   depth phase 7c trains at; a 2048-row block of B=4096 at offset 2048,
+   the 2x1 mesh's block of phase 10c). Tolerances: forward outputs rtol 1e-4
    / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of the
    forward, two of dU and two of dV must give the same bits.
 4. Small-input check of the whole step: three steps at embedding 32,
@@ -114,10 +115,11 @@
    --exec device-loop, then evaluate-model on its checkpoint, with phase
    7's checks (launch counts set to 0 just before train-model and read just
    after must equal its steps); its steady and train examples/s beside the
-   host loop's. (c) Phase 7's draw written as parquet, prepare-data
-   --streaming, train-model --prepared-dir --exec auto (it must choose,
-   log and report device_loop) and evaluate-model --prepared-dir, with
-   the same checks.
+   host loop's. (c) A draw of phase 7's density cut to 2M interactions
+   (100k users x 50k items; cut in depth to make room for phase 10)
+   written as parquet, prepare-data --streaming, train-model
+   --prepared-dir --exec auto (it must choose, log and report
+   device_loop) and evaluate-model --prepared-dir, with the same checks.
 7c. Oracle parity at config2 (tools/oracle_parity.py's preset, its
    stages in process): the generator's stats, the artifact's rows, users,
    items and temporal split, and the ceiling's and plug-in's metrics and
@@ -142,7 +144,9 @@
    positions) with random weights from seed 0, written as a local HF
    directory (a WordPiece vocab.txt of BERT's specials, the synthetic
    text's words and filler pieces; a config-built BertModel): train-model
-   --synthetic-text on phase 7d's draw with model.text_encoder=transformer
+   --synthetic-text on a draw of phase 7d's density cut to 500k
+   interactions (25k users x 12.5k items; cut in depth to make room for
+   phase 10) with model.text_encoder=transformer
    on the device loop for one epoch (the text table 30,523 buckets, padded
    to 30,592 rows x 128, initialised from the word embeddings' PCA), then
    evaluate-model, with phase 7's checks (launches = steps, recall@10 at
@@ -197,6 +201,38 @@
    top-100 crosses 0), ids equal outside ranks tied within that atol.
    Prints the native search's host ms and threads beside the card's device
    ms, as one {"cpu_index": ...} JSON line.
+10. The mesh (parallel/; one process a rank). (a) Probe: the NCCL
+   version; each of the port's four collectives by gloo on the card's
+   tensors between two spawned ranks, values checked (the phase fails if
+   gloo lacks one: the port calls all four on the card's tensors);
+   NCCL's refusal of two ranks on one device. (b) One rank over nccl (a
+   world of one) at the main path's width with dropout 0 and
+   mesh.a2a_capacity_factor=2.0: three mesh steps against the one-device
+   sparse step from one init and one set of batches (after one step: the
+   JAX tests' rtol 1e-4 / atol 1e-6; after three: rtol 5e-3 / atol 5e-4;
+   elements whose gradient was under 1e-6 within 2 lr a step, the range
+   of an Adam update), each
+   kernel once a step; Trainer(mesh=).fit over 20 batches (launches =
+   steps); the device loop's epoch on the mesh, the step and its
+   collectives captured as a CUDA graph (launches = steps by the counters
+   and one of each kernel a replay by a profiler count), replay ms; then
+   train-model --mesh --prepared-dir at the full model width on an
+   artifact written directly with the main path's 1M users x 500k items
+   as its vocab and 102,400 interactions (20 steps; a latent-factor draw
+   over every 50th user and item), host loop and --device-loop (launches
+   = steps), each followed by evaluate-model --mesh equal to
+   evaluate-model within 1e-6 and test recall@10 at least 10x random. (c) Two spawned ranks
+   sharing the card over gloo, layouts 2x1 and 1x2, at the main path's
+   width at float32 compute: every tensor on cuda:0, the device loop's
+   refusal of the gloo mesh (naming the backend), 5 steps on 10b's
+   batches,
+   rank 1's blocks at row_offset 2048 (2048 x 4096), launches = steps a
+   rank, dropped_ids 0, the gathered state equal to the one-device steps
+   after one step (10b's rule) and after five (rtol 5e-3 / atol 5e-4), the
+   median step ms. In 10b and 10c at most 1e-5 of a leaf's other elements
+   may fall outside the tolerance, within 2 lr a step. Prints one
+   {"mesh": ...} JSON line. NCCL across two or more ranks needs a second
+   card and is not run.
 9. Times: per kernel, at the main path's shape, the device time of one
    call, beside its bound, its plain version and a library yardstick (one
    torch.matmul(u, v.T) at the same shape, which the port never calls).
@@ -215,7 +251,9 @@
    Each row also carries its launches in phase 7's train-model run, in
    phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
    serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
-   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs.
+   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs, and
+   in phase 10's mesh runs (10b's Trainer, device-loop epoch and both
+   train-model --mesh runs; rank 1's in 10c's 2x1 and 1x2).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -276,6 +314,8 @@ CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (512, 256, 512, 0, True),
     # The oracle parity run's shape (phase 7c: config2, embedding 64).
     (MAIN_B, 64, MAIN_B, 0, True),
+    # The 2x1 mesh's block on rank 1 (phase 10c): 2048 rows of 4096 columns.
+    (MAIN_B, MAIN_D, MAIN_B // 2, MAIN_B // 2, True),
 ]
 
 
@@ -883,7 +923,7 @@ def profile_steps(step, state, batches, gen, n: int = 5) -> float:
 GRAPH_STEPS = 32  # steps of the graph-timing epochs (25 timed replays fit in one)
 
 
-def time_graph_step(main, launches_a_step: int = 1, item_tokens=None) -> dict:
+def time_graph_step(main, launches_a_step: int = 1, item_tokens=None, mesh=None) -> dict:
     """The main-path step replayed from a CUDA graph: the device loop's
     epoch (training/device_loop.py) at the main path's shape and state, over
     random columns on the card. Launch counts over a whole epoch (two
@@ -894,7 +934,8 @@ def time_graph_step(main, launches_a_step: int = 1, item_tokens=None) -> dict:
     count ``launches_a_step`` launches of each kernel a replay, with the
     device time by kind of kernel, and the peak device memory over the
     epoch (the capture's pool included). ``item_tokens``: the text tower's
-    ``[items, T]`` tokens on the card."""
+    ``[items, T]`` tokens on the card; ``mesh``: the epoch on the mesh
+    (its step and collectives captured), ``state`` the rank's shard."""
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
@@ -904,7 +945,8 @@ def time_graph_step(main, launches_a_step: int = 1, item_tokens=None) -> dict:
     ds = DeviceDataset(rng.integers(0, NUM_USERS, n), rng.integers(0, NUM_ITEMS, n), MAIN_B,
                        device="cuda")
     lq = torch.as_tensor(log_q, device="cuda")
-    prog = make_epoch_fn(cfg, opt, ds.num_steps, num_items=NUM_ITEMS, device="cuda")
+    prog = make_epoch_fn(cfg, opt, ds.num_steps, num_items=NUM_ITEMS, device="cuda",
+                         mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -1482,10 +1524,10 @@ def logged(name: str, into: list):
 
 
 def run_prepared_slice(card: str):
-    """Phase 7's synthetic draw written as parquet, prepare-data --streaming
-    over it, train-model --prepared-dir --exec auto (which must choose,
-    log and report the device loop), then evaluate-model --prepared-dir on
-    its checkpoint."""
+    """A synthetic draw of phase 7's density (2M interactions) written as
+    parquet, prepare-data --streaming over it, train-model --prepared-dir
+    --exec auto (which must choose, log and report the device loop), then
+    evaluate-model --prepared-dir on its checkpoint."""
     import pandas as pd
 
     from twotower_tpu_torch.data import generate_interactions
@@ -1495,8 +1537,8 @@ def run_prepared_slice(card: str):
     raw_dir, prepared = base / "raw", base / "prepared"
     raw_dir.mkdir(parents=True)
     t0 = time.perf_counter()
-    raw = generate_interactions(num_users=200_000, num_items=100_000,
-                                num_interactions=4_000_000, device="cuda")
+    raw = generate_interactions(num_users=100_000, num_items=50_000,
+                                num_interactions=2_000_000, device="cuda")
     pd.DataFrame({"user_id": raw.user_id, "parent_asin": raw.item_id, "rating": raw.rating,
                   "timestamp": raw.timestamp}).to_parquet(raw_dir / "interactions.parquet")
     t1 = time.perf_counter()
@@ -1523,6 +1565,10 @@ def run_prepared_slice(card: str):
 # 25k items, the density of phase 7's draw), some 30 s of host time.
 TEXT_DATA = ["--synthetic", "--synthetic-users", "50000", "--synthetic-items", "25000",
              "--synthetic-interactions", "1000000"]
+# Phase 7e: the same density at half the draw (500k interactions), cut in
+# depth to keep the whole script within its earlier length with phase 10.
+TRANSFORMER_DATA = ["--synthetic", "--synthetic-users", "25000", "--synthetic-items", "12500",
+                    "--synthetic-interactions", "500000"]
 
 
 def run_text_slice(card: str) -> dict:
@@ -1624,8 +1670,8 @@ def run_transformer_slice(card: str) -> dict:
                   keep=lambda p: p["text_embedding"].detach().cpu().clone()):
         summary, launches, _, _ = train_and_evaluate(
             ROOT / "build" / "chip_smoke_transformer",
-            TEXT_DATA + ["--synthetic-text", "--exec", "device-loop"], TEXT_DATA,
-            "transformer text tower",
+            TRANSFORMER_DATA + ["--synthetic-text", "--exec", "device-loop"],
+            TRANSFORMER_DATA, "transformer text tower",
             overrides=["model.text_encoder=transformer", f"model.text_model_path={model_dir}",
                        "training.epochs=1"])
     (_, _, (config, encoder, init), t_resolve) = resolved[0]
@@ -2267,6 +2313,550 @@ def run_serving(card: str, ckpt: Path, test_users: np.ndarray, best_step: int) -
     return {"card": card, "trained": trained, **full}
 
 
+# Phase 10: the mesh. The main path's width with dropout 0 (parity with the
+# one-device step) and the a2a buckets of the flagship presets.
+MESH_OVER = {"training.batch_size": MAIN_B, "mesh.a2a_capacity_factor": 2.0,
+             "model.dropout_rate": 0.0}
+MESH_STEPS = 20
+MESH_GLOO_STEPS = 5
+# One-device step against the mesh step: the JAX tests' state tolerances
+# after one step and over several (tests/test_sparse_spmd.py); elements
+# with a cancelled gradient within the range of Adam's steps, 2 lr a step:
+# an update lies in [-lr, lr], and a gradient near 0 can change its sign
+# with the summation order (ROADMAP.md, Queue 3).
+MESH_ONE_STEP = dict(rtol=1e-4, atol=1e-6)
+MESH_MULTI_STEP = dict(rtol=5e-3, atol=5e-4)
+# The share of a leaf's elements (beyond those with a cancelled gradient)
+# allowed outside the tolerance, each within the Adam steps: at full width a
+# gradient sums 4096 rows, and two ranks' halves summed apart move an
+# element whose terms nearly cancel past rtol 1e-4 (one of 131,072 of a
+# tower's Adam moments after one step on the card), and over several steps
+# an element whose Adam momentum nearly cancels moves by a step.
+MESH_OUTLIERS = 1e-5
+PROBE_TIMEOUT_S = 90
+GLOO_TIMEOUT_S = 240
+
+
+def mesh_batches(n: int, seed: int = 21) -> list[dict]:
+    """Random full-width batches (ids over the 1M x 500k tables, unit
+    weights): the same on every rank and in every sub-phase."""
+    rng = np.random.default_rng(seed)
+    return [{"user_idx": rng.integers(0, NUM_USERS, MAIN_B).astype(np.int32),
+             "item_idx": rng.integers(0, NUM_ITEMS, MAIN_B).astype(np.int32),
+             "weight": np.ones(MAIN_B, np.float32)} for _ in range(n)]
+
+
+@contextlib.contextmanager
+def cancelled_rows(masks: dict):
+    """While open, the lazy-Adam row updates (``training/sparse.py``) add to
+    ``masks`` (by table data pointer, as ``cancelled_masks`` keys the dense
+    params) the table elements whose summed row gradient was non-zero but
+    under 1e-6: the rows' twin of ``cancelled_masks``."""
+    from twotower_tpu_torch.training import sparse
+
+    update = sparse.adam_row_update_packed
+
+    def record(table, moments, targets, grads, valid, **kw):
+        small = ((grads.abs() < 1e-6) & (grads != 0) & valid[:, None]).float()
+        seen = masks.setdefault(table.data_ptr(), torch.zeros_like(table, dtype=torch.bool))
+        hits = torch.zeros_like(table).index_add_(0, targets.long(), small)
+        seen |= hits > 0
+        return update(table, moments, targets, grads, valid, **kw)
+
+    sparse.adam_row_update_packed = record
+    try:
+        yield masks
+    finally:
+        sparse.adam_row_update_packed = update
+
+
+def states_close(got, ref, tol: dict, lr_steps: float, what: str, masks=None,
+                 outliers: float = 0.0) -> dict:
+    """Every leaf of two whole train states (params, table moments, dense
+    optimizer slots) within ``tol``, on the card. ``masks``
+    (``cancelled_masks`` of the optimizer that stepped ``ref``, and
+    ``cancelled_rows`` around its steps) names the params' elements whose
+    gradient was under 1e-6 in some step: those are held to ``lr_steps``
+    instead (ROADMAP.md, Queue 3). Over several steps the towers' moved
+    elements change the next steps' gradients, and an element whose Adam
+    momentum nearly cancels may move by a step too: ``outliers`` is the
+    share of a leaf's other elements allowed outside ``tol``, each within
+    ``lr_steps``. Returns the largest difference and the counts of
+    elements outside ``tol``."""
+    from twotower_tpu_torch.utils.checkpoint import state_to_tree
+
+    masks = masks or {}
+    worst = {"max_abs": 0.0, "cancelled_outside_tol": 0, "others_outside_tol": 0}
+    a, b = tree_leaves(state_to_tree(got)), tree_leaves(state_to_tree(ref))
+    if len(a) != len(b):
+        raise RuntimeError(f"{what}: {len(a)} leaves against {len(b)}")
+    for x, y in zip(a, b):
+        if not torch.is_tensor(x):
+            if x != y:
+                raise RuntimeError(f"{what}: {x} != {y}")
+            continue
+        y = y.to(x.device)
+        diff = (x - y).abs()
+        outside = ~torch.isclose(x, y, **tol)
+        mask = masks.get(y.data_ptr())
+        if mask is not None:
+            cancelled = outside & mask
+            if cancelled.any() and float(diff[cancelled].max()) > lr_steps:
+                raise RuntimeError(f"{what}: a cancelled gradient's element off by "
+                                   f"{float(diff[cancelled].max())} > {lr_steps}")
+            worst["cancelled_outside_tol"] += int(cancelled.sum())
+            outside = outside & ~mask
+        n_out = int(outside.sum())
+        if n_out and (n_out > outliers * x.numel()
+                      or float(diff[outside].max()) > lr_steps):
+            raise RuntimeError(f"{what}: {n_out} elements of a leaf {tuple(x.shape)} "
+                               f"outside {tol}, up to {float(diff[outside].max())} "
+                               f"(allowed: {outliers} of it within {lr_steps})")
+        worst["others_outside_tol"] += n_out
+        worst["max_abs"] = max(worst["max_abs"], float(diff.max()))
+    return worst
+
+
+GLOO_COLLECTIVES = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
+
+
+def _probe_rank(rank: int, backend: str, store: str, out: str) -> None:
+    """One rank of a two-rank probe on the one card: gloo runs each of the
+    port's four collectives on CUDA tensors; nccl runs an all-reduce. Each
+    outcome is written to ``out``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.cuda.set_device(0)
+    result = {}
+    try:
+        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+        both = [torch.arange(4.0) + 10 * r for r in range(2)]
+
+        def run(op, out, want):
+            op(out)
+            torch.cuda.synchronize()
+            return "ok" if torch.equal(out.cpu(), want) else f"wrong values {out.tolist()}"
+
+        ops = {
+            "all_reduce": lambda: run(lambda o: dist.all_reduce(o), x.clone(), sum(both)),
+            "all_gather": lambda: run(lambda o: dist.all_gather_into_tensor(o, x),
+                                      x.new_empty(8),
+                                      torch.cat(both)),
+            "all_to_all": lambda: run(lambda o: dist.all_to_all_single(o, x),
+                                      torch.empty_like(x),
+                                      torch.cat([b[2 * rank:2 * rank + 2] for b in both])),
+            "reduce_scatter": lambda: run(lambda o: dist.reduce_scatter_tensor(o, x),
+                                          x.new_empty(2),
+                                          sum(both)[2 * rank:2 * rank + 2]),
+        }
+        for name, op in (ops.items() if backend == "gloo" else [("all_reduce",
+                                                                   ops["all_reduce"])]):
+            try:  # a probe: the outcome is the finding
+                result[name] = op()
+            except Exception as exc:  # noqa: BLE001
+                result[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    except Exception as exc:  # noqa: BLE001
+        result["init"] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    Path(out).write_text(json.dumps(result))
+
+
+def run_ranks_on_card(target, args_of, timeout: float, what: str) -> list:
+    """Two spawned processes on the one card running ``target(rank,
+    *args_of(rank))``; killed past ``timeout`` s. Returns their exit codes."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args_of(r))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    if hung:
+        log(f"  {what}: {len(hung)} rank(s) still running after {timeout} s, killed")
+    return [p.exitcode for p in procs]
+
+
+def probe_backends(work: Path) -> dict:
+    """Phase 10a: the NCCL version; whether gloo takes the card's tensors
+    in each of the four collectives the port calls (the phase fails if one
+    does not: parallel/mesh.py calls them on CUDA tensors as they are);
+    whether NCCL refuses two ranks on one device."""
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    log(f"  NCCL {nccl}")
+    found = {}
+    for backend in ("gloo", "nccl"):
+        d = fresh_dir(work / f"probe_{backend}")
+        d.mkdir(parents=True)
+        codes = run_ranks_on_card(
+            _probe_rank, lambda r: (backend, str(d / "store"), str(d / f"rank{r}.json")),
+            PROBE_TIMEOUT_S, f"probe {backend}")
+        res = [json.loads((d / f"rank{r}.json").read_text())
+               if (d / f"rank{r}.json").exists() else {"hung": f"exit {codes[r]}"}
+               for r in range(2)]
+        found[backend] = res[0]
+        if backend == "gloo":
+            for c in GLOO_COLLECTIVES:
+                log(f"  gloo {c} on CUDA tensors: {res[0].get(c, res[0])}")
+        else:
+            outcome = res[0].get("all_reduce", res[0].get("init", res[0]))
+            refused = outcome != "ok"
+            log(f"  nccl, two ranks on one device: {'refused' if refused else 'ACCEPTED'} "
+                f"({outcome})")
+            found["nccl_refuses_two_ranks"] = refused
+    missing = [c for c in GLOO_COLLECTIVES if found["gloo"].get(c) != "ok"]
+    if missing:
+        raise RuntimeError(f"gloo does not run {missing} on CUDA tensors, which the port's "
+                           "two-ranks-on-one-card mesh calls on them")
+    return {"nccl": nccl, **found}
+
+
+def mesh_nccl_one_rank(card: str, work: Path) -> dict:
+    """Phase 10b: the mesh of one rank over nccl at the main path's width.
+    (1) three steps of the mesh step against the one-device sparse step
+    from one init and one set of batches (after one step and after three);
+    (2) Trainer(mesh=).fit over 20 batches (host loop) and the device loop's
+    epoch on the mesh, captured with its collectives and replayed
+    (launches = steps by the counters, and one of each kernel a replay by
+    a profiler count); (3) train-model --mesh (host loop, --device-loop)
+    and evaluate-model --mesh against evaluate-model."""
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.data import BatchPipeline
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.parallel import build_mesh
+    from twotower_tpu_torch.training import (Trainer, init_train_state, make_optimizer,
+                                             make_train_step)
+    from twotower_tpu_torch.training.train import _EncodedColumns
+
+    cfg = Config().with_overrides(MESH_OVER)
+    opt = make_optimizer(cfg.training)
+    mesh = build_mesh(cfg.mesh, device="cuda")
+    if (mesh.world, mesh.backend) != (1, "nccl"):
+        raise RuntimeError(f"phase 10b: a mesh of {mesh.world} rank(s) on {mesh.backend}")
+    lr = cfg.training.learning_rate
+    opt_one = make_optimizer(cfg.training)
+    masks = cancelled_masks(opt_one)
+    one = init_train_state(cfg, opt_one, NUM_USERS, NUM_ITEMS)
+    state = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    rows_i = state.params["item_embedding"].shape[0]
+    log_q = np.log(np.full(rows_i, 1.0 / NUM_ITEMS, np.float32))
+    step_one = make_train_step(cfg, opt_one, log_q)
+    step_mesh = make_train_step(cfg, opt, log_q, mesh=mesh, state_template=state)
+    batches = mesh_batches(MESH_STEPS)
+    checks = {}
+    first = {w.__name__: 0 for w in kernels.WRAPPERS}
+    for i in range(3):
+        with cancelled_rows(masks):
+            one, m1 = step_one(one, batches[i], None)
+        kernels.reset_launch_counts()  # the mesh step's launches alone
+        state, mm = step_mesh(state, batches[i], None)
+        for w in kernels.WRAPPERS:
+            first[w.__name__] += w.launches
+        if i == 0:
+            for k, rtol in (("loss", 2e-5), ("grad_norm", 1e-4)):
+                if not math.isclose(float(mm[k]), float(m1[k]), rel_tol=rtol):
+                    raise RuntimeError(f"10b step 1 {k}: mesh {float(mm[k])} one-device "
+                                       f"{float(m1[k])}")
+            checks["after 1 step"] = states_close(state, one, MESH_ONE_STEP, 2 * lr,
+                                                  "10b step 1", outliers=MESH_OUTLIERS,
+                                                  masks=masks)
+    checks["after 3 steps"] = states_close(state, one, MESH_MULTI_STEP, 2 * 3 * lr,
+                                           "10b step 3", outliers=MESH_OUTLIERS,
+                                           masks=masks)
+    if any(v != 3 for v in first.values()) or float(mm["dropped_ids"]) != 0:
+        raise RuntimeError(f"10b: launches {first} over 3 mesh steps, dropped "
+                           f"{float(mm['dropped_ids'])}")
+    log(f"  mesh step (1 rank, nccl) = one-device step: loss {float(mm['loss'])} vs "
+        f"{float(m1['loss'])}; states {checks}; launches {first} over 3 steps")
+    del one, step_one
+    torch.cuda.empty_cache()
+
+    cols = _EncodedColumns(np.concatenate([b["user_idx"] for b in batches]),
+                           np.concatenate([b["item_idx"] for b in batches]))
+    fit_cfg = cfg.with_overrides({"training.epochs": 1})
+    trainer = Trainer(fit_cfg, log_q=log_q, mesh=mesh)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    res = trainer.fit(state, BatchPipeline(cols, MAIN_B, seed=1))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    host = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    if any(v != MESH_STEPS for v in host.values()) or not math.isfinite(res.history[-1]["loss"]):
+        raise RuntimeError(f"10b Trainer(mesh=): launches {host} over {MESH_STEPS} steps, "
+                           f"loss {res.history[-1]['loss']}")
+    log(f"  Trainer(mesh=).fit: {MESH_STEPS} steps in {fit_s:.3f} s (first step's setup "
+        f"included), loss {res.history[-1]['loss']:.4f}, dropped_ids "
+        f"{res.history[-1]['dropped_ids']}; launches {host} (one a step) ({card})")
+    graph = time_graph_step((cfg, opt, res.state, log_q), mesh=mesh)
+    out = {"launches_trainer": row_launches(host), "launches_graph": row_launches(
+        graph["launches"]), "replay_ms": graph["replay_ms"], "wall_ms": graph["wall_ms"],
+        "checks": checks}
+    del state, res, trainer
+    torch.cuda.empty_cache()
+    out.update(mesh_cli(card, work))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the world of one this phase started
+    return out
+
+
+# train-model --mesh at the main path's table size: a prepare-data artifact
+# written directly, whose vocab is the main path's 1M users x 500k items and
+# whose 102,400 interactions give 20 train steps of 4096 at the 80/10/10
+# temporal split. The interactions are a latent-factor draw
+# (generate_interactions) over 20k users x 10k items spread evenly over the
+# vocab (every 50th id), so the held-out users were trained on and the
+# metrics that evaluate-model --mesh must match are well above random. So
+# the CLI's sharded tables, a2a buckets, collective checkpoint and sharded
+# evaluation run at the main path's table size, without the host
+# preprocessing of a draw that touches every row (some 20M interactions at
+# phase 7's density).
+MESH_CLI_ROWS = 20 * MAIN_B * 10 // 8
+MESH_CLI_SPREAD = 50  # vocab ids a drawn id
+MESH_CLI_TRAIN = ["--writers", "jsonl", "--override", f"training.batch_size={MAIN_B}",
+                  "training.epochs=1", "mesh.a2a_capacity_factor=2.0"]
+
+
+def write_mesh_artifact(out: Path) -> Path:
+    """The artifact of MESH_CLI_ROWS interactions over a vocab of NUM_USERS
+    x NUM_ITEMS (ids zero-padded, so their sorted order is their index),
+    in prepare-data's layout: combined_interactions.parquet (user_idx,
+    item_idx, rating, timestamp) and vocab/."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from twotower_tpu_torch.data import generate_interactions
+    from twotower_tpu_torch.data.vocab import VocabPair, Vocabulary
+
+    raw = generate_interactions(num_users=NUM_USERS // MESH_CLI_SPREAD,
+                                num_items=NUM_ITEMS // MESH_CLI_SPREAD,
+                                num_interactions=MESH_CLI_ROWS, device="cuda")
+    users = np.array([int(u[1:]) for u in raw.user_id], np.int32) * MESH_CLI_SPREAD
+    items = np.array([int(i[1:]) for i in raw.item_id], np.int32) * MESH_CLI_SPREAD
+    out.mkdir(parents=True)
+    pq.write_table(pa.table({"user_idx": users, "item_idx": items, "rating": raw.rating,
+                             "timestamp": raw.timestamp}),
+                   out / "combined_interactions.parquet")
+
+    def vocab(prefix: str, n: int, idx: np.ndarray) -> Vocabulary:
+        ids = np.char.add(prefix, np.char.zfill(np.arange(n).astype(str), 7))
+        return Vocabulary(ids=ids.astype(object),
+                          counts=np.bincount(idx, minlength=n).astype(np.int64))
+
+    VocabPair(users=vocab("u", NUM_USERS, users),
+              items=vocab("i", NUM_ITEMS, items)).save(out / "vocab")
+    return out
+
+
+def mesh_cli(card: str, work: Path) -> dict:
+    """train-model --mesh --prepared-dir over write_mesh_artifact's 1M x
+    500k vocab (host loop, then --device-loop), each followed by
+    evaluate-model --mesh and evaluate-model on its checkpoint (equal
+    within 1e-6); launches = train-model's steps."""
+    from twotower_tpu_torch.evaluation.evaluate import main as eval_main
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.train import main as train_main
+
+    t = time.perf_counter()
+    data = ["--prepared-dir", str(write_mesh_artifact(work / "cli_prepared"))]
+    log(f"  artifact: {MESH_CLI_ROWS} interactions over {NUM_USERS} users x {NUM_ITEMS} "
+        f"items written in {time.perf_counter() - t:.1f} s")
+    out = {}
+    for label, extra in (("host", ["--exec", "host"]), ("device_loop", ["--device-loop"])):
+        ckpt = fresh_dir(work / f"cli_{label}")
+        args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        summary = run_cli(train_main, args + ["--mesh"] + extra + data + MESH_CLI_TRAIN)
+        train_s = time.perf_counter() - t
+        launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        records = epoch_records(ckpt)
+        steps = int(records[-1]["step"])
+        if summary["mesh"] != {"data": 1, "model": 1, "rank": 0, "backend": "nccl"}:
+            raise RuntimeError(f"train-model --mesh ran on {summary['mesh']}")
+        if summary["execution_rung"] != label:
+            raise RuntimeError(f"train-model --mesh {label} ran {summary['execution_rung']}")
+        if any(v != steps for v in launches.values()):
+            raise RuntimeError(f"train-model --mesh {label}: launches {launches} != {steps}")
+        if (summary["num_users"], summary["num_items"]) != (NUM_USERS, NUM_ITEMS):
+            raise RuntimeError(f"train-model --mesh ran on {summary['num_users']} users x "
+                               f"{summary['num_items']} items")
+        meshed = run_cli(eval_main, args + ["--mesh"] + data)
+        plain = run_cli(eval_main, args + data)
+        bad = {k: (meshed["metrics"][k], v) for k, v in plain["metrics"].items()
+               if abs(meshed["metrics"][k] - v) > 1e-6}
+        if bad or meshed["checkpoint_step"] != plain["checkpoint_step"]:
+            raise RuntimeError(f"evaluate-model --mesh != evaluate-model: {bad}")
+        if plain["metrics"]["recall@10"] < 10 * 10 / NUM_ITEMS:
+            raise RuntimeError(f"train-model --mesh {label}: test recall@10 "
+                               f"{plain['metrics']['recall@10']} under 10x random")
+        log(f"  train-model --mesh ({summary['execution_rung']}): {steps} steps, "
+            f"{summary['num_users']} users x {summary['num_items']} items, loss "
+            f"{records[-1]['loss']:.4f}, {train_s:.1f} s, steady "
+            f"{summary['steady_examples_per_sec']:.0f} examples/s ({card}); launches "
+            f"{launches} (one a step); evaluate-model --mesh = evaluate-model within 1e-6 "
+            f"(recall@10 {plain['metrics']['recall@10']})")
+        out[f"launches_cli_{label}"] = row_launches(launches)
+    return out
+
+
+def _gloo_rank(rank: int, num_model: int, store: str, out: str) -> None:
+    """One of two ranks on the one card over gloo (phase 10c): the full-width
+    mesh state, MESH_GLOO_STEPS steps on the batches of phase 10b, the
+    kernels' row offsets and launches; rank 0 gathers the state and holds
+    it against the one-device steps from the same init."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.parallel import build_mesh, gather_state
+    from twotower_tpu_torch.parallel.sharding import data_rows
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    # float32 compute for the comparison: bf16 rounding of weights that two
+    # summation orders moved by an ulp would amplify it (as phases 4-4d).
+    cfg = Config().with_overrides({**MESH_OVER, "mesh.num_model": num_model,
+                                   "model.compute_dtype": "float32"})
+    opt = make_optimizer(cfg.training)
+    mesh = build_mesh(cfg.mesh, device="cuda", backend="gloo")
+    state = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    devices = {str(t.device) for t in tree_leaves(state.params)}
+    if devices != {"cuda:0"} or mesh.device != torch.device("cuda", 0):
+        raise RuntimeError(f"rank {rank}: tensors on {devices}, mesh on {mesh.device}")
+    from twotower_tpu_torch.models.two_tower import padded_rows
+
+    log_q = np.log(np.full(padded_rows(NUM_ITEMS), 1.0 / NUM_ITEMS, np.float32))
+    # A gloo mesh's collectives wait on the host: the device loop refuses to
+    # capture them, naming the backend.
+    from twotower_tpu_torch.training.device_loop import make_epoch_fn
+
+    refusal = ""
+    try:
+        make_epoch_fn(cfg, opt, MESH_GLOO_STEPS, num_items=NUM_ITEMS, mesh=mesh)
+    except ValueError as exc:
+        refusal = str(exc)
+    if "gloo" not in refusal:
+        raise RuntimeError(f"rank {rank}: the device loop took a gloo mesh on the card "
+                           f"({refusal or 'no error'})")
+    offsets = []
+    block = kernels.fused_in_batch_softmax_block
+
+    def spy(u, v, ids, row_offset, **kw):  # the block the step hands the kernels
+        offsets.append((int(row_offset), tuple(u.shape), tuple(v.shape)))
+        return block(u, v, ids, row_offset, **kw)
+
+    # ops.dispatch reads the wrapper at each call: the spy stays in place
+    # over the mesh steps and comes out before the one-device steps.
+    kernels.fused_in_batch_softmax_block = spy
+    step = make_train_step(cfg, opt, log_q, mesh=mesh, state_template=state)
+    batches = mesh_batches(MESH_GLOO_STEPS)
+    times, dropped, launches = [], 0.0, {w.__name__: 0 for w in kernels.WRAPPERS}
+    for i, b in enumerate(batches):
+        local = {k: data_rows(mesh, torch.as_tensor(v)) for k, v in b.items()}
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, local, None)
+        dropped += float(m["dropped_ids"])  # synchronises
+        times.append((time.perf_counter() - t) * 1e3)
+        for w in kernels.WRAPPERS:
+            launches[w.__name__] += w.launches
+        if i == 0:
+            first = gather_state(state)  # held against one step below
+    kernels.fused_in_batch_softmax_block = block
+    full = gather_state(state)
+    result = {"rank": rank, "offsets": offsets, "launches": launches, "dropped": dropped,
+              "step_ms": times, "loss": float(m["loss"]), "refusal": refusal,
+              "shard_rows": state.params["user_embedding"].shape[0]}
+    del state
+    if rank == 0:
+        what = f"10c {2 // num_model}x{num_model}"
+        lr = cfg.training.learning_rate
+        opt_one = make_optimizer(cfg.training)
+        masks = cancelled_masks(opt_one)
+        one = init_train_state(cfg, opt_one, NUM_USERS, NUM_ITEMS)
+        step_one = make_train_step(cfg, opt_one, log_q)
+        checks = {}
+        with cancelled_rows(masks):
+            for i, b in enumerate(batches):
+                one, m1 = step_one(one, b, None)
+                if i == 0:
+                    checks["after 1 step"] = states_close(
+                        first, one, MESH_ONE_STEP, 2 * lr, f"{what} step 1", masks,
+                        outliers=MESH_OUTLIERS)
+                    del first
+        result["one_device_loss"] = float(m1["loss"])
+        checks[f"after {MESH_GLOO_STEPS} steps"] = states_close(
+            full, one, MESH_MULTI_STEP, 2 * MESH_GLOO_STEPS * lr, f"{what} step 5", masks,
+            outliers=MESH_OUTLIERS)
+        result["checks"] = checks
+    Path(out).write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_gloo_two_ranks(card: str, work: Path) -> dict:
+    """Phase 10c: two ranks sharing the card over gloo (gloo's own CUDA
+    collectives, which copy through host memory; NCCL refuses two ranks on
+    one device), layouts 2x1 and 1x2, at the main path's width."""
+    out = {}
+    for num_model in (1, 2):
+        layout = f"{2 // num_model}x{num_model}"
+        d = fresh_dir(work / f"gloo_{layout}")
+        d.mkdir(parents=True)
+        codes = run_ranks_on_card(_gloo_rank,
+                                  lambda r: (num_model, str(d / "store"), str(d / f"r{r}.json")),
+                                  GLOO_TIMEOUT_S, f"10c {layout}")
+        if any(codes) or not all((d / f"r{r}.json").exists() for r in range(2)):
+            raise RuntimeError(f"10c {layout}: ranks exited {codes}")
+        r0, r1 = (json.loads((d / f"r{r}.json").read_text()) for r in range(2))
+        for r in (r0, r1):
+            if any(v != MESH_GLOO_STEPS for v in r["launches"].values()) or r["dropped"]:
+                raise RuntimeError(f"10c {layout} rank {r['rank']}: launches {r['launches']}, "
+                                   f"dropped {r['dropped']}")
+        if {o[0] for o in r1["offsets"]} != {MAIN_B // 2} or {o[0] for o in r0["offsets"]} != {0}:
+            raise RuntimeError(f"10c {layout}: row offsets {r0['offsets'][0]} "
+                               f"{r1['offsets'][0]}")
+        step_ms = statistics.median(r0["step_ms"][1:] + r1["step_ms"][1:])
+        log(f"  {layout}, gloo on the card: both ranks on cuda:0, {r0['shard_rows']} table rows "
+            f"a rank; the device loop refused the mesh ({r0['refusal']}); rank 1's blocks {r1['offsets'][0][1]} rows x {r1['offsets'][0][2]} "
+            f"columns at row_offset {r1['offsets'][0][0]}; launches {r1['launches']} a rank "
+            f"over {MESH_GLOO_STEPS} steps; dropped_ids 0; gathered state = one-device steps "
+            f"{r0['checks']} (loss {r0['loss']:.6f} vs {r0['one_device_loss']:.6f}); median "
+            f"step {step_ms:.3f} ms ({card})")
+        out[layout] = {"step_ms": step_ms, "launches_rank1": row_launches(r1["launches"]),
+                       "offsets_rank1": r1["offsets"][0], "checks": r0["checks"]}
+    return out
+
+
+def run_mesh_phase(card: str):
+    """Phase 10: the probe, one rank over nccl, two ranks over gloo."""
+    log("phase 10: the mesh")
+    work = fresh_dir(ROOT / "build" / "chip_smoke_mesh")
+    work.mkdir(parents=True)
+    t = time.perf_counter()
+    log("phase 10a: probe")
+    probe = probe_backends(work)
+    log("phase 10b: one rank over nccl at full width")
+    one = mesh_nccl_one_rank(card, work)
+    log("phase 10c: two ranks on the card over gloo, 2x1 and 1x2, at full width")
+    two = mesh_gloo_two_ranks(card, work)
+    log(json.dumps({"mesh": {"probe": probe, "nccl_1_rank": one, "gloo_2_ranks": two}}))
+    log(f"  phase 10: {time.perf_counter() - t:.1f} s")
+    return one, two
+
+
 def kernel_times(errs, launches, report):
     from twotower_tpu_torch.ops import kernels
 
@@ -2344,6 +2934,11 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     errs = check_kernels(CHECK_SHAPES)
 
+    if sys.argv[1:] == ["--mesh-only"]:  # a partial run: phases 1-3 and 10, no result line
+        run_mesh_phase(card)
+        log("phases 1-3 and 10 passed (a partial run: no result line)")
+        return 0
+
     log("phase 4: small-input step, card against CPU")
     check_small_step()
 
@@ -2411,6 +3006,8 @@ def main() -> int:
     cpu_index = check_cpu_index(ROOT / "build" / "chip_smoke_slice", test_users, card)
     log(json.dumps({"cpu_index": cpu_index}))
 
+    mesh_one, mesh_two = run_mesh_phase(card)
+
     log("phase 9: kernel times")
     rows = kernel_times(errs, launches, report)
     names = {"fused_loss_fwd": "fused_fwd", "fused_loss_bwd_du": "fused_bwd_du",
@@ -2425,13 +3022,22 @@ def main() -> int:
         row["launches_text_train_model"] = text_slice["launches"][row["name"]]
         row["launches_transformer_train_model"] = transformer["launches"][row["name"]]
         row["launches_orchestrated_train_model"] = orchestrated["launches"][row["name"]]
+        row["launches_mesh_nccl_trainer"] = mesh_one["launches_trainer"][row["name"]]
+        row["launches_mesh_nccl_device_loop"] = mesh_one["launches_graph"][row["name"]]
+        row["launches_mesh_nccl_train_model"] = mesh_one["launches_cli_host"][row["name"]]
+        row["launches_mesh_nccl_train_model_device_loop"] = (
+            mesh_one["launches_cli_device_loop"][row["name"]])
+        row["launches_mesh_gloo_2x1_rank1"] = mesh_two["2x1"]["launches_rank1"][row["name"]]
+        row["launches_mesh_gloo_1x2_rank1"] = mesh_two["1x2"]["launches_rank1"][row["name"]]
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "
         f"{graph['replay_ms']} ms, {MAIN_B / graph['replay_ms'] * 1e3:.1f} examples/s; mixed "
         f"sampling replayed: {mixed['replay_ms']} ms; dense adam / adamw replayed: "
         f"{dense['adam']['replay_ms']} / {dense['adamw']['replay_ms']} ms; text replayed: "
-        f"{text['replay_ms']} ms")
+        f"{text['replay_ms']} ms; mesh of one rank (nccl) replayed: {mesh_one['replay_ms']} "
+        f"ms; two ranks over gloo, a step: 2x1 {mesh_two['2x1']['step_ms']} ms, 1x2 "
+        f"{mesh_two['1x2']['step_ms']} ms")
     log(json.dumps({
         "ok": True,
         "device": {

@@ -3,8 +3,8 @@
 (``tests/test_model_training.py``, ``tests/test_serving_checkpoint.py``):
 the artifacts, the round trip (``evaluate`` reproduces the summary's test
 metrics within 1e-6: the same params, data and code), ``--val-rows``,
-``--no-eval``, ``--resume``, ``--data`` and the flags of slices not ported
-yet (the prepared-dir path and the rungs: ``test_torch_cli_prepared.py``)."""
+``--no-eval``, ``--resume``, ``--data`` and the multi-GPU flags (the
+prepared-dir path and the rungs: ``test_torch_cli_prepared.py``)."""
 
 import json
 import sys
@@ -163,17 +163,42 @@ def test_missing_tracking_backend_raises(tmp_path, monkeypatch, kind):
      ["--mesh"], ["--coordinator", "h:1"],
      ["--exec", "device-loop", "--coordinator", "h:1"]],
 )
-def test_unported_train_flags_exit_naming_roadmap(tmp_path, capsys, flag):
-    """The flags of slices still to come exit, also beside the ported ones."""
-    with pytest.raises(SystemExit) as e:
-        train_main(["--device", "cpu", "--checkpoint-dir", str(tmp_path), *flag])
-    assert e.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_unported_train_flags_exit_naming_roadmap(tmp_path, capsys, monkeypatch, flag):
+    """The multi-GPU flags, once unported, are ported now (ROADMAP.md's
+    Done): each reaches the run (stubbed here; ``test_torch_multiprocess.py``
+    and ``test_torch_mesh.py`` run them), no message names ROADMAP.md, and
+    ``--coordinator`` asks for ``--num-processes`` and ``--process-id``."""
+    import twotower_tpu_torch.parallel.mesh as mesh_mod
+    import twotower_tpu_torch.training.train as train_mod
+
+    seen = []
+    monkeypatch.setattr(train_mod, "run", lambda args, config: seen.append(args) or {})
+    monkeypatch.setattr(mesh_mod, "initialize_multihost", lambda *a, **k: False)
+    argv = ["--device", "cpu", "--checkpoint-dir", str(tmp_path), *flag]
+    if "--coordinator" in flag:
+        with pytest.raises(SystemExit) as e:
+            train_main(argv)
+        assert e.value.code != 0 and "--num-processes" in capsys.readouterr().err
+        argv += ["--num-processes", "1", "--process-id", "0"]
+    assert train_main(argv) == 0
+    assert "ROADMAP.md" not in capsys.readouterr().err
+    args = seen[-1]
+    for f in flag:
+        if f in ("--mesh", "--shard-input", "--device-loop", "--stream-batches"):
+            assert getattr(args, f[2:].replace("-", "_")) is True, f
+    assert args.coordinator == ("h:1" if "--coordinator" in flag else None)
 
 
 @pytest.mark.parametrize("flag", [["--prepared-dir", "x", "--mesh"], ["--mesh"]])
-def test_unported_evaluate_flags_exit_naming_roadmap(tmp_path, capsys, flag):
-    with pytest.raises(SystemExit) as e:
-        eval_main(["--device", "cpu", "--checkpoint-dir", str(tmp_path), *flag])
-    assert e.value.code != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_unported_evaluate_flags_exit_naming_roadmap(tmp_path, capsys, monkeypatch, flag):
+    """``evaluate-model --mesh`` is ported: it reaches the run (stubbed;
+    ``test_torch_multiprocess.py`` runs it on two processes)."""
+    import twotower_tpu_torch.evaluation.evaluate as eval_mod
+    import twotower_tpu_torch.parallel.mesh as mesh_mod
+
+    seen = []
+    monkeypatch.setattr(eval_mod, "run", lambda args, config: seen.append(args) or {})
+    monkeypatch.setattr(mesh_mod, "initialize_multihost", lambda *a, **k: False)
+    assert eval_main(["--device", "cpu", "--checkpoint-dir", str(tmp_path), *flag]) == 0
+    assert "ROADMAP.md" not in capsys.readouterr().err
+    assert seen[-1].mesh is True

@@ -183,8 +183,22 @@ def test_device_trainer_learns_and_is_deterministic():
 
 def test_unported_options_raise():
     cfg = Config().with_overrides(OVERRIDES)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        DeviceTrainer(cfg, mesh=object(), device="cpu")
+    # The mesh path, once unported, builds now (test_torch_mesh_eval.py runs
+    # its epoch against JAX's): the trainer takes the mesh's device, a CPU
+    # mesh refuses a CUDA graph, and so does a gloo mesh over CUDA tensors
+    # (its collectives wait on the host), naming the backend before it
+    # touches the card.
+    from types import SimpleNamespace
+
+    import torch
+
+    mesh = SimpleNamespace(device=torch.device("cpu"), backend="gloo")
+    assert DeviceTrainer(cfg, mesh=mesh).device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA"):
+        make_epoch_fn(cfg, make_optimizer(cfg.training), 3, mesh=mesh, capture=True)
+    gloo_on_card = SimpleNamespace(device=torch.device("cuda", 0), backend="gloo")
+    with pytest.raises(ValueError, match="gloo mesh.*nccl"):
+        make_epoch_fn(cfg, make_optimizer(cfg.training), 3, mesh=gloo_on_card, capture=True)
     # The text tower is ported: the tokens go to the device with the trainer.
     text = cfg.with_overrides({"model.text_buckets": 64, "model.text_tokens": 2})
     trainer = DeviceTrainer(text, item_tokens=np.zeros((3, 2), np.int32), device="cpu")

@@ -19,7 +19,10 @@ import torch
 from twotower_tpu.ops import losses as jax_losses
 from twotower_tpu.ops import pallas_kernels
 from twotower_tpu_torch.ops import kernels, losses
-from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
+from twotower_tpu_torch.ops.dispatch import (
+    in_batch_softmax_block_auto,
+    in_batch_softmax_loss_auto,
+)
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
 
 JAX_LOSS = {
@@ -200,6 +203,22 @@ def test_dispatch_routes_cpu_to_plain_and_rejects_other_devices():
     assert [wr.launches for wr in kernels.WRAPPERS] == before  # no kernel on CPU
     with pytest.raises(ValueError, match="device"):
         in_batch_softmax_loss_auto(*(a.to("meta") for a in args), temperature=0.1)
+
+
+def test_block_dispatch_routes_cpu_to_plain_and_rejects_other_devices():
+    """A mesh rank's block (rows 32-47 of 64) goes to the plain block on the
+    CPU, launching nothing; a device with neither route raises."""
+    u, v, idx, log_q, w = _inputs(8, 64, 16)
+    args = (_t(u[32:48]), _t(v), _t(idx), 32)
+    kw = dict(temperature=0.1, log_q=_t(log_q), weights_all=_t(w))
+    before = [wr.launches for wr in kernels.WRAPPERS]
+    got = in_batch_softmax_block_auto(*args, **kw)
+    ref = losses.in_batch_softmax_block(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert [wr.launches for wr in kernels.WRAPPERS] == before
+    with pytest.raises(ValueError, match="device"):
+        in_batch_softmax_block_auto(*(a.to("meta") for a in args[:3]), 32, temperature=0.1)
 
 
 def test_wrappers_reject_mixed_devices():

@@ -76,7 +76,25 @@ def test_hygiene_check_sees_the_whole_package():
             "twotower_tpu_torch/data/explore.py",
             "twotower_tpu_torch/data/orchestrate.py",
             "twotower_tpu_torch/data/migrate.py",
+            "twotower_tpu_torch/parallel/mesh.py",
+            "twotower_tpu_torch/parallel/sharding.py",
+            "twotower_tpu_torch/parallel/a2a.py",
+            "twotower_tpu_torch/parallel/spmd.py",
+            "twotower_tpu_torch/parallel/sparse_spmd.py",
             "twotower_tpu_torch/bridge.py"} <= names
+
+
+def test_parallel_picks_its_backend_from_the_device_never_from_an_exception():
+    """``parallel/*`` chooses ``nccl`` or ``gloo`` by the device (and stages a
+    gloo collective on CUDA tensors by name): no module of it catches an
+    exception, so no failure can quietly pick another backend or path."""
+    files = sorted((ROOT / "twotower_tpu_torch" / "parallel").glob("*.py"))
+    assert len(files) >= 6
+    for path in files:
+        tree = ast.parse(path.read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)], path.name
+    mesh = (ROOT / "twotower_tpu_torch" / "parallel" / "mesh.py").read_text()
+    assert 'BACKEND_OF_DEVICE = {"cuda": "nccl", "cpu": "gloo"}' in mesh
 
 
 # Packages the port uses only where it needs them (loading a HF model

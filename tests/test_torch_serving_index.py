@@ -215,7 +215,7 @@ def test_from_checkpoint_records_step_and_pins(tmp_path):
 def test_unported_options_raise(tmp_path):
     _, cfg = _configs("tpu_mips", "auto")
     params = two_tower.init_params(torch.Generator().manual_seed(0), cfg.model, 5, 5)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="Sharded serving and the scaling tools"):
         RetrievalIndex(cfg, params, 5, 5, mesh=object(), device="cpu")
     # Item tokens need a model with a text tower (as in the JAX index).
     with pytest.raises(ValueError, match="no text tower"):

@@ -162,8 +162,9 @@ def test_lr_schedule_matches_optax(warmup, decay):
 def test_unported_paths_raise():
     """Another optimizer, weight decay or ``sparse_table_updates=false``
     leaves the sparse path for the dense step (``test_torch_dense_step.py``
-    holds it against JAX's): each builds and takes a step. The mesh path
-    still raises."""
+    holds it against JAX's): each builds and takes a step. The mesh path,
+    once unported, builds a rank's shard of the state now (the mesh tests
+    hold its steps against JAX's)."""
     cfg = Config().with_overrides(OVERRIDES)
     for over in ({"training.optimizer": "adagrad"}, {"training.weight_decay": 0.01},
                  {"training.sparse_table_updates": False}, {"training.optimizer": "sgd"}):
@@ -174,9 +175,25 @@ def test_unported_paths_raise():
         step = make_train_step(dcfg, opt, device="cpu", num_items=NUM_ITEMS)
         state, m = step(state, _batches(1, 0, 0, False)[0], None)
         assert state.step == state.opt_state.count == 1 and np.isfinite(float(m["loss"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_train_state(cfg, make_optimizer(cfg.training), 10, 10, mesh=object(),
-                         device="cpu")
+    from types import SimpleNamespace
+
+    from twotower_tpu_torch.training.state import tree_leaves
+
+    # A rank's view of a 2-rank model axis (index 1): its half of each table.
+    axis = SimpleNamespace(size=2, index=1)
+    mesh = SimpleNamespace(device=torch.device("cpu"), config=cfg.mesh,
+                           axis=lambda name: axis)
+    full = init_train_state(cfg, make_optimizer(cfg.training), 10, 10, device="cpu")
+    shard = init_train_state(cfg, make_optimizer(cfg.training), 10, 10, mesh=mesh)
+    assert shard.sharding.sparse_mesh and shard.sharding.mesh is mesh
+    for name, t in full.params.items():
+        if name.endswith("_embedding"):
+            half = t.shape[0] // 2
+            assert torch.equal(shard.params[name], t[half:])
+            assert shard.table_state[name]["moments"].shape == (half, 2 * t.shape[1])
+        else:
+            for x, y in zip(tree_leaves(shard.params[name]), tree_leaves(full.params[name])):
+                assert torch.equal(x, y)
 
 
 def test_optax_adam_state_layout_is_what_the_bridge_reads():

@@ -172,12 +172,16 @@ def test_small_corpus_not_padded_to_full_chunk():
 
 
 def test_unported_options_raise():
-    """The mesh path still raises; the text tower and the dense step build
-    (``test_torch_text_tower.py`` and ``test_torch_dense_step.py`` train
-    them against JAX's)."""
+    """The mesh path, once unported, builds now: the Trainer takes the
+    mesh's device and builds its step in ``fit`` against the state's layout
+    (``test_torch_multiprocess.py`` trains it against JAX's); the text
+    tower and the dense step build (``test_torch_text_tower.py`` and
+    ``test_torch_dense_step.py`` train them against JAX's)."""
+    from types import SimpleNamespace
+
     cfg, _, _, _ = _setup()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, mesh=object(), device="cpu")
+    meshed = Trainer(cfg, mesh=SimpleNamespace(device=torch.device("cpu")))
+    assert meshed.device.type == "cpu" and meshed.train_step is None
     text = cfg.with_overrides({"model.text_buckets": 64, "model.text_tokens": 2})
     trainer = Trainer(text, item_tokens=np.zeros((3, 2), np.int32), device="cpu")
     assert "text_embedding" in trainer.init_state(5, 3).params

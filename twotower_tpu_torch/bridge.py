@@ -14,6 +14,9 @@ package. The layouts are the JAX package's:
   the slots cover the dense towers and ``table_state`` holds the packed
   lazy-Adam moments; on the dense path the slots cover every parameter and
   ``table_state`` is None.
+
+On a mesh, ``sharded_state_from_numpy`` gives each rank its shard of the
+port's state and ``gathered_state_to_numpy`` gathers the shards back.
 """
 
 from __future__ import annotations
@@ -68,3 +71,22 @@ def state_to_numpy(state: TrainState) -> dict:
         "opt_state": {k: v if k == "count" else params_to_numpy(v) for k, v in opt.items()},
         "table_state": params_to_numpy(state.table_state),
     }
+
+
+def sharded_state_from_numpy(tree: dict, mesh, config) -> TrainState:
+    """numpy train state (the JAX package's global arrays) -> this rank's
+    shard of the port's state on ``mesh`` (``parallel.sharding.shard_state``
+    in the layout ``TrainState.for_config(mesh=)`` gives ``config``)."""
+    from twotower_tpu_torch.parallel.sharding import shard_state
+    from twotower_tpu_torch.parallel.sparse_spmd import use_sparse_mesh_path
+
+    return shard_state(mesh, state_from_numpy(tree), config.mesh,
+                       sparse_mesh=use_sparse_mesh_path(config))
+
+
+def gathered_state_to_numpy(state: TrainState) -> dict:
+    """A sharded ``TrainState`` -> the numpy train state of the whole model
+    (a collective: every rank of the mesh calls it)."""
+    from twotower_tpu_torch.parallel.sharding import gather_state
+
+    return state_to_numpy(gather_state(state))

@@ -8,7 +8,11 @@ after checking the artifact's vocab sizes against the checkpoint's; or
 rebuilt from ``--synthetic``/``--data`` with the SAME deterministic
 preprocessing and the checkpoint's vocab), and reports Recall@K / NDCG@K /
 MRR over the full corpus, encoded with the item text tokens saved beside
-the checkpoint when the model has a text tower. ``--mesh`` exits with a ROADMAP.md pointer.
+the checkpoint when the model has a text tower. ``--mesh`` restores into
+the shards of the ``(data, model)`` mesh of ``config.mesh`` (the ranks of
+the process group, a launcher's or ``--coordinator``'s, else a world of one
+process) and evaluates with the corpus row-sharded over ``model``; its
+metrics equal the one-device run's.
 """
 
 from __future__ import annotations
@@ -63,8 +67,15 @@ def build_argparser() -> argparse.ArgumentParser:
         help="cap scoring to a strided subsample of this many held-out rows "
         "(the stride rule of train-model --val-rows)",
     )
-    p.add_argument("--mesh", action="store_true",
-                   help="evaluate over the device mesh (not ported yet)")
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="evaluate over the mesh of config.mesh: the checkpoint restored into "
+        "the ranks' shards, the encoded corpus row-sharded over the model axis",
+    )
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="multi-process rendezvous HOST:PORT or init URL (see train-model)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -91,12 +102,14 @@ def _capped(user_idx, item_idx, rows: int | None):
 
 def restore_params(
     config: Config, ckpt_dir: Path, num_users: int, num_items: int,
-    step: int | None = None, *, device=None,
+    step: int | None = None, *, device=None, mesh=None,
 ):
     """Restore params from a checkpoint via a freshly initialized template
-    on ``device``. With no ``step``, the best-metric durable step is
-    preferred over the newest one: after async save starvation the newest
-    checkpoint is the post-patience final state."""
+    on ``device``; with ``mesh``, this rank's shard of them in the mesh's
+    layout (``TrainState.for_config(mesh=)``). With no ``step``, the
+    best-metric durable step is preferred over the newest one: after async
+    save starvation the newest checkpoint is the post-patience final
+    state."""
     import torch
 
     from twotower_tpu_torch.models import two_tower
@@ -104,12 +117,12 @@ def restore_params(
     from twotower_tpu_torch.utils.checkpoint import CheckpointManager
     from twotower_tpu_torch.utils.platform import resolve_device
 
-    dev = resolve_device(device)
+    dev = torch.device("cpu") if mesh is not None else resolve_device(device)
     optimizer = make_optimizer(config.training)
     params = two_tower.init_params(
         torch.Generator(device=dev).manual_seed(0), config.model, num_users, num_items
     )
-    template = TrainState.for_config(params, optimizer, config)
+    template = TrainState.for_config(params, optimizer, config, mesh=mesh)
     manager = CheckpointManager(ckpt_dir)
     if step is None:
         step = manager.best_step()
@@ -196,20 +209,29 @@ def run(args, config: Config) -> dict:
     ckpt_dir = Path(args.checkpoint_dir)
     subset_of = _prepared_subset if args.prepared_dir else _in_memory_subset
     user_idx, item_idx, num_users, num_items = subset_of(args, config, ckpt_dir)
+    mesh = None
+    if args.mesh:
+        from twotower_tpu_torch.parallel import build_mesh
+
+        mesh = build_mesh(config.mesh, device=args.device)
     params, meta = restore_params(
-        config, ckpt_dir, num_users, num_items, step=args.step, device=args.device
+        config, ckpt_dir, num_users, num_items, step=args.step, device=args.device, mesh=mesh
     )
     evaluator = Evaluator(config, num_items, item_tokens=load_item_tokens(ckpt_dir),
-                          device=args.device)
+                          device=args.device, mesh=mesh)
     eu, ei = _capped(user_idx, item_idx, getattr(args, "rows", None))
     metrics = evaluator.evaluate(params, eu, ei)
-    return {
+    out = {
         "subset": args.subset,
         "rows": len(eu),
         "num_items": num_items,
         "checkpoint_step": meta.get("step"),
         "metrics": metrics,
     }
+    if mesh is not None:
+        out["mesh"] = {"data": mesh.num_data, "model": mesh.num_model, "rank": mesh.rank,
+                       "backend": mesh.backend}
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -224,13 +246,23 @@ def main(argv: list[str] | None = None) -> int:
             "temporal 80/10/10 protocol); for --split random use the "
             "in-memory --data path"
         )
-    if args.mesh:
-        parser.error("--mesh is not ported yet (ROADMAP.md, Queue 1: multi-GPU)")
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        parser.error("--coordinator needs --num-processes and --process-id")
     resolve_device(args.device)  # no GPU: raise before any work
     config = load_config_for_checkpoint(
         args.checkpoint_dir, args.config, parse_cli_overrides(args.override)
     )
-    result = run(args, config)
+    from twotower_tpu_torch.training.train import join_process_group
+
+    owned = join_process_group(args)
+    try:
+        result = run(args, config)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(json.dumps(result))
     return 0
 

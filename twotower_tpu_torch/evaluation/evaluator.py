@@ -12,7 +12,10 @@ precision, as the JAX package computes it off the TPU.
 
 The metric sums stay on the device across batches and are read once at the
 end (the counterpart of the JAX evaluator's single fetch after its
-``lax.scan``). The JAX evaluator's time-budgeted scan segments guard a
+``lax.scan``). With ``mesh=`` the encoded corpus stays row-sharded over
+``model`` and the queries split over ``data`` (``parallel/spmd.py``); the
+parameters are the rank's shard in the layout ``TrainState.for_config(
+mesh=)`` gives them. The JAX evaluator's time-budgeted scan segments guard a
 watchdog of its TPU transport and have no counterpart here:
 ``retrieval.eval_device_scan`` and ``retrieval.eval_scan_budget_s`` are
 accepted and change nothing.
@@ -58,11 +61,8 @@ class Evaluator:
         mesh=None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # The item text tokens ([num_items, T]) of a model with a text tower,
         # resident on the device for the corpus encode.
         self.item_tokens = (
@@ -82,6 +82,17 @@ class Evaluator:
             else self.auto_chunk_size(num_items, batch_size)
         )
         self._ks_used = tuple(k for k in self.ks if k <= self.max_k) or (self.max_k,)
+        if mesh is not None:
+            from twotower_tpu_torch.parallel.sharding import StateSharding
+            from twotower_tpu_torch.parallel.sparse_spmd import use_sparse_mesh_path
+            from twotower_tpu_torch.parallel.spmd import make_sharded_eval_step
+
+            if batch_size % mesh.num_data:
+                raise ValueError(f"eval batch_size={batch_size} must divide by "
+                                 f"num_data={mesh.num_data}")
+            self._sharded = make_sharded_eval_step(
+                config, mesh, num_items, self.max_k, item_tokens=self.item_tokens,
+                sharding=StateSharding(mesh, use_sparse_mesh_path(config)))
 
     def _encode_corpus(self, params) -> torch.Tensor:
         """The corpus ``[num_items, D]`` at ``retrieval.eval_corpus_dtype``,
@@ -103,6 +114,8 @@ class Evaluator:
     ) -> dict[str, float]:
         """Single-positive protocol: for each (user, held-out item) row, rank
         the full corpus for the user and score where the item lands."""
+        if self.mesh is not None:
+            return self._evaluate_sharded(params, user_idx, item_idx)
         mcfg = self.config.model
         corpus = self._encode_corpus(params)
         users = torch.as_tensor(np.asarray(user_idx, np.int64)).to(self.device)
@@ -133,6 +146,39 @@ class Evaluator:
         logger.info(
             "evaluated %d rows over %d items: %s",
             n, self.num_items, {k: round(v, 4) for k, v in sorted(out.items())},
+        )
+        return out
+
+    def _evaluate_sharded(self, params, user_idx, item_idx) -> dict[str, float]:
+        """The mesh path (``parallel.spmd.make_sharded_eval_step``): every rank
+        passes the same split; each data shard scores its rows of each
+        batch (padded to the batch with zero-weight rows) against the
+        corpus shards of its model group, and the sums are all-reduced over
+        ``data`` once, so every rank returns the same metrics."""
+        from twotower_tpu_torch.parallel.spmd import eval_keys
+
+        mesh = self.mesh
+        encode, eval_batch = self._sharded
+        full, corpus = encode(params)
+        bs, per = self.batch_size, self.batch_size // mesh.num_data
+        lo = mesh.d_idx * per
+        keys = eval_keys(self.config, self.max_k)
+        sums = torch.zeros(len(keys) + 1, device=self.device)
+        n = len(user_idx)
+        for start in range(0, n, bs):
+            rows = np.zeros((3, bs), np.int64)
+            real = min(bs, n - start)
+            rows[0, :real] = user_idx[start:start + real]
+            rows[1, :real] = item_idx[start:start + real]
+            rows[2, :real] = 1
+            u, it, w = torch.as_tensor(rows[:, lo:lo + per]).to(self.device)
+            sums += eval_batch(full, corpus, u, it, w.float())
+        host = mesh.data.all_reduce(sums).tolist()
+        out = {k: v / max(host[-1], 1.0) for k, v in zip(keys, host)} if n else {}
+        logger.info(
+            "evaluated %d rows over %d items (mesh %dx%d, corpus shard %d rows): %s",
+            n, self.num_items, mesh.num_data, mesh.num_model, corpus.shape[0],
+            {k: round(v, 4) for k, v in sorted(out.items())},
         )
         return out
 

@@ -1,4 +1,5 @@
-"""Loss dispatch on the tensors' device.
+"""Loss dispatch on the tensors' device: the square in-batch loss and its
+block form (a mesh rank's rows at ``row_offset``).
 
 Counterpart of ``twotower_tpu/ops/dispatch.py``. CUDA tensors go to the
 fused CUDA kernels (``ops/kernels.py``); CPU tensors go to the plain version
@@ -36,4 +37,31 @@ def in_batch_softmax_loss_auto(
         temperature=temperature,
         log_q=log_q,
         weights=weights,
+    )
+
+
+def in_batch_softmax_block_auto(
+    user_emb: torch.Tensor,
+    item_emb_all: torch.Tensor,
+    item_idx_all: torch.Tensor,
+    row_offset: int,
+    *,
+    temperature: float = 0.1,
+    log_q: torch.Tensor | None = None,
+    weights_all: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    impl = {
+        "cuda": kernels.fused_in_batch_softmax_block,
+        "cpu": losses.in_batch_softmax_block,
+    }.get(user_emb.device.type)
+    if impl is None:
+        raise ValueError(f"no in-batch block loss for device {user_emb.device}")
+    return impl(
+        user_emb,
+        item_emb_all,
+        item_idx_all,
+        row_offset,
+        temperature=temperature,
+        log_q=log_q,
+        weights_all=weights_all,
     )

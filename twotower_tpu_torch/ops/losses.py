@@ -143,14 +143,13 @@ def l2_penalty(
     tower_params: dict, gathered_embeddings: list[torch.Tensor]
 ) -> torch.Tensor:
     """Sparse-friendly L2: dense tower kernels (not biases) plus only the
-    embedding rows touched this step."""
-    acc = torch.zeros((), device=gathered_embeddings[0].device)
+    embedding rows touched this step (either part may be empty)."""
     # Sorted names: the summation order of the JAX package's tree_leaves.
-    for name in sorted(tower_params):
-        for layer in tower_params[name]:
-            acc = acc + torch.sum(layer["kernel"].float() ** 2)
-    for emb in gathered_embeddings:
-        acc = acc + torch.sum(emb.float() ** 2)
+    terms = [layer["kernel"] for name in sorted(tower_params) for layer in tower_params[name]]
+    terms += list(gathered_embeddings)
+    acc = torch.zeros((), device=terms[0].device)
+    for t in terms:
+        acc = acc + torch.sum(t.float() ** 2)
     return acc
 
 

@@ -487,3 +487,82 @@ def topk_mips_approx(
             row_scale = row_scale * item_scale
         vals = vals.float() * row_scale
     return vals, ids
+
+
+def _shard_topk(search, query, shard, k: int, axis, num_items: int | None):
+    """Cross-shard merge of a search over a corpus row-sharded over ``axis``:
+    this shard's top-``min(k, rows)`` over its real rows (rows at global
+    index >= ``num_items`` are padding and never scored; a shard with fewer
+    real rows than that fills with -inf), ids offset to global ones, the
+    candidates all-gathered along ``axis`` and merged by an exact top-k."""
+    rows = shard.shape[0]
+    offset = axis.index * rows
+    local_k = min(k, rows)
+    valid = rows if num_items is None else max(0, min(num_items - offset, rows))
+    b = query.shape[0]
+    vals = torch.full((b, local_k), float("-inf"), device=query.device)
+    idx = torch.zeros((b, local_k), dtype=torch.long, device=query.device)
+    if valid:
+        kk = min(local_k, valid)
+        vals[:, :kk], idx[:, :kk] = search(query, shard, kk, valid)
+    idx = idx + offset
+    all_vals = axis.all_gather(vals).view(axis.size, b, local_k)
+    all_idx = axis.all_gather(idx).view(axis.size, b, local_k)
+    all_vals = all_vals.permute(1, 0, 2).reshape(b, axis.size * local_k)
+    all_idx = all_idx.permute(1, 0, 2).reshape(b, axis.size * local_k)
+    out_vals, sel = torch.topk(all_vals, k, dim=1)
+    return out_vals, torch.gather(all_idx, 1, sel)
+
+
+def topk_mips_sharded(
+    query_emb: torch.Tensor,
+    item_emb_shard: torch.Tensor,
+    k: int,
+    *,
+    axis,
+    chunk_size: int | None = None,
+    num_items: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a corpus row-sharded over ``axis`` (a
+    ``parallel.mesh.Axis``; every rank of it calls with the same queries):
+    each rank searches its shard (the two-pass search for shards of more
+    than ``4 k`` blocks of 64, the plain scan below), and the per-shard
+    candidates merge exactly, since the global top-k lies in the union of
+    the per-shard top-ks (JAX ``topk_mips_sharded``). ``num_items``: the
+    real corpus size; shard rows past it are padding. Returns the global
+    ``(scores, ids)`` on every rank."""
+    if chunk_size is None:
+        chunk_size = exact_scan_chunk(query_emb.shape[0])
+    block = 64
+
+    def search(q, shard, kk, valid):
+        if shard.shape[0] > 4 * kk * block and chunk_size >= block:
+            return topk_mips_twopass(q, shard, kk, chunk_size=chunk_size // block * block,
+                                     block=block, num_valid=valid)
+        return topk_mips(q, shard, kk, chunk_size=chunk_size, num_valid=valid)
+
+    return _shard_topk(search, query_emb, item_emb_shard, k, axis, num_items)
+
+
+def topk_mips_approx_sharded(
+    query_emb: torch.Tensor,
+    item_emb_shard: torch.Tensor,
+    k: int,
+    *,
+    axis,
+    recall_target: float = 0.95,
+    query_chunk: int = 256,
+    item_chunk: int = 1 << 21,
+    num_items: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``topk_mips_approx`` on each shard of a corpus row-sharded over
+    ``axis``, merged as ``topk_mips_sharded`` merges (JAX
+    ``topk_mips_approx_sharded``): the only difference from the exact
+    search is the corpus's resident precision."""
+
+    def search(q, shard, kk, valid):
+        return topk_mips_approx(q, shard, kk, recall_target=recall_target,
+                                query_chunk=query_chunk, item_chunk=item_chunk,
+                                num_valid=valid)
+
+    return _shard_topk(search, query_emb, item_emb_shard, k, axis, num_items)

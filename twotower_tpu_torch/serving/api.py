@@ -34,7 +34,7 @@ from twotower_tpu_torch.logging_utils import get_logger, setup_logging
 
 logger = get_logger(__name__)
 
-_MULTI_GPU = "ROADMAP.md, Queue 1: multi-GPU"
+_SHARDED_SERVING = "ROADMAP.md, Queue 1: Sharded serving and the scaling tools"
 
 
 class ServingError(ValueError):
@@ -1001,7 +1001,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = build_argparser()
     args = parser.parse_args(argv)
     if args.shard_corpus:
-        parser.error(f"--shard-corpus is not ported yet ({_MULTI_GPU})")
+        parser.error(f"--shard-corpus is not ported yet ({_SHARDED_SERVING})")
     try:
         from aiohttp import web
     except ImportError:

@@ -55,7 +55,8 @@ class RetrievalIndex:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded serving corpus is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
+                "a sharded serving corpus is not ported yet "
+                "(ROADMAP.md, Queue 1: Sharded serving and the scaling tools)"
             )
         self.device = resolve_device(device)
         self.config = config

@@ -113,19 +113,26 @@ class _EpochProgram:
     item tokens of its capture."""
 
     def __init__(self, config: Config, optimizer, num_steps: int, *, num_items, device,
-                 capture):
+                 capture, mesh=None):
         from twotower_tpu_torch.training.loop import make_raw_step
 
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         if capture is None:
             capture = self.device.type == "cuda"
         if capture and self.device.type != "cuda":
             raise ValueError("CUDA graph capture needs a CUDA device")
+        if capture and mesh is not None and mesh.backend != "nccl":
+            raise ValueError(
+                f"a {mesh.backend} mesh's collectives on {self.device} wait on the host "
+                "(gloo copies CUDA tensors through host memory), which a CUDA graph cannot "
+                "capture: the device loop on CUDA needs the nccl backend"
+            )
         self.capture = capture
         self.num_steps = num_steps
         self.batch_size = config.training.batch_size
         self.seed = config.training.seed
-        self._step = make_raw_step(config, optimizer, num_items=num_items)
+        self.mesh = mesh
+        self._step = make_raw_step(config, optimizer, num_items=num_items, mesh=mesh)
         dev = self.device
         # Dropout masks: one generator for the run, registered with the graph
         # so every replay draws fresh masks.
@@ -146,6 +153,10 @@ class _EpochProgram:
         """One step, every value it reads and writes on the device."""
         sel = self._perm.view(self.num_steps, self.batch_size).index_select(0, self._row)
         sel = sel.view(-1)
+        if self.mesh is not None:  # this rank's data shard of the step's rows
+            from twotower_tpu_torch.parallel.sharding import data_rows
+
+            sel = data_rows(self.mesh, sel)
         batch = {k: v.index_select(0, sel) for k, v in columns.items()}
         _, metrics = self._step(state, batch, self._gen, log_q, item_tokens, clock=self._clock)
         if self._sums is None:
@@ -200,6 +211,8 @@ class _EpochProgram:
                 return
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self._gen)
+            if hasattr(self._step, "dropout_gen"):  # a mesh step's own masks
+                graph.register_generator_state(self._step.dropout_gen)
             with kernels.record_launches() as record:
                 with torch.cuda.graph(graph, stream=self._stream):
                     self._body(*self._args)
@@ -216,11 +229,10 @@ class _EpochProgram:
         self._args = None
         metrics = {k: v / self.num_steps for k, v in self._sums.items()}
         opt = state.opt_state
-        return TrainState(
+        return replace(
+            state,
             step=state.step + self.num_steps,
-            params=state.params,
             opt_state=replace(opt, count=opt.count + self.num_steps),
-            table_state=state.table_state,
         ), metrics
 
     def _bind(self, state: TrainState, columns: dict, log_q, item_tokens) -> None:
@@ -253,6 +265,7 @@ def make_epoch_fn(
     num_items: int | None = None,
     device: str | torch.device | None = None,
     capture: bool | None = None,
+    mesh=None,
 ):
     """Build ``epoch_fn(state, columns, epoch, log_q=None, item_tokens=None,
     *, perm=None)``: the epoch's permutation and ``num_steps`` train steps
@@ -265,15 +278,25 @@ def make_epoch_fn(
     (``capture`` defaults to True there). Two hooks for tests: ``perm`` (the
     padded rows' order, in place of the one drawn from ``epoch_seed``), and
     ``capture=False``, which runs the same step eagerly on a CUDA device.
+
+    With ``mesh`` (JAX ``make_sharded_epoch_fn``) every rank holds the whole
+    columns and draws the same permutation; each step takes the rank's data
+    shard of its rows and runs the mesh step on the rank's shard of the
+    state. On ``nccl`` the step, collectives included, is captured and
+    replayed; a ``gloo`` mesh over CUDA tensors cannot be captured (its
+    collectives wait on the host) and raises, naming the backend; on the
+    CPU the step runs eagerly.
     """
     return _EpochProgram(config, optimizer, num_steps, num_items=num_items, device=device,
-                         capture=capture)
+                         capture=capture, mesh=mesh)
 
 
 class DeviceTrainer:
     """Epoch-granular host loop over the device-resident epochs: the same
     contract as ``Trainer`` for validation, early stopping and checkpoints,
-    on one device (``cuda`` unless the caller passes ``device="cpu"``)."""
+    on one device (``cuda`` unless the caller passes ``device="cpu"``), or
+    on a ``mesh`` (every rank holds the whole columns; the state is the
+    rank's shard)."""
 
     def __init__(
         self,
@@ -290,11 +313,8 @@ class DeviceTrainer:
         text_embedding_init: np.ndarray | None = None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.optimizer = make_optimizer(config.training)
         self.log_q = (
@@ -316,7 +336,7 @@ class DeviceTrainer:
         from twotower_tpu_torch.training.state import init_train_state
 
         return init_train_state(
-            self.config, self.optimizer, num_users, num_items,
+            self.config, self.optimizer, num_users, num_items, mesh=self.mesh,
             text_embedding_init=self._text_embedding_init, device=self.device,
         )
 
@@ -324,7 +344,7 @@ class DeviceTrainer:
         if num_steps not in self._epoch_fns:
             self._epoch_fns[num_steps] = make_epoch_fn(
                 self.config, self.optimizer, num_steps,
-                num_items=self.num_items, device=self.device,
+                num_items=self.num_items, device=self.device, mesh=self.mesh,
             )
         return self._epoch_fns[num_steps]
 

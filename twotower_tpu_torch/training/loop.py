@@ -8,7 +8,11 @@ it), as ``training.sparse_table_updates`` and the optimizer choose; the
 host loop feeds fixed-shape batches through a background prefetcher (host
 dedup on its thread), reads each dispatch's metrics one dispatch late,
 validates, early-stops, saves on improvement and persists progress on
-preemption. The mesh path raises with a pointer to ROADMAP.md.
+preemption. With ``mesh=`` the step is the mesh step
+(``parallel/spmd.py``) on this rank's shard of the state and of each batch
+(the pipeline feeds the rank's rows: ``parallel.sharding.process_row_spans``);
+metrics are all-reduced, so every rank takes the same decisions, and
+checkpoint saves are collective (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -140,9 +144,18 @@ def make_step_fn(config: Config, optimizer: Optimizer, *, num_items: int | None 
     return step
 
 
-def make_raw_step(config: Config, optimizer: Optimizer, *, num_items: int | None = None):
+def make_raw_step(config: Config, optimizer: Optimizer, *, num_items: int | None = None,
+                  mesh: Any = None, state_template: TrainState | None = None):
     """The sparse step when ``training.effective_sparse_updates()``, else the
-    dense one (JAX ``make_train_step``'s dispatch, ``loop.py:186-207``)."""
+    dense one (JAX ``make_train_step``'s dispatch, ``loop.py:186-207``); on a
+    ``mesh``, the mesh step (``parallel.spmd.make_sharded_train_step``:
+    sparse or dense by ``parallel.use_sparse_mesh_path``), which takes this
+    rank's data shard of each batch."""
+    if mesh is not None:
+        from twotower_tpu_torch.parallel.spmd import make_sharded_train_step
+
+        return make_sharded_train_step(config, optimizer, mesh, state_template,
+                                       num_items=num_items)
     if config.training.effective_sparse_updates():
         from twotower_tpu_torch.training.sparse import make_sparse_step_fn
 
@@ -158,11 +171,14 @@ def make_train_step(
     item_tokens: np.ndarray | torch.Tensor | None = None,
     num_items: int | None = None,
     device: str | torch.device | None = None,
+    mesh: Any = None,
+    state_template: TrainState | None = None,
 ) -> TrainStepFn:
     """Build the train step ``step(state, batch, rng)`` on ``device``
-    (``cuda`` unless the caller asks for the CPU): sparse or dense as
-    ``make_raw_step`` dispatches, with ``log_q`` and ``item_tokens`` bound
-    as tensors on the device.
+    (``cuda`` unless the caller asks for the CPU; a ``mesh``'s own device
+    on a mesh): sparse or dense, or the mesh step, as ``make_raw_step``
+    dispatches, with ``log_q`` and ``item_tokens`` bound as tensors on the
+    device.
 
     ``batch`` is a dict of numpy arrays or tensors (``user_idx``,
     ``item_idx``, optional ``weight`` and the ``training.host_dedup`` keys);
@@ -171,8 +187,9 @@ def make_train_step(
     0 in_batch). The step updates ``state``'s tensors in place and returns
     ``(new_state, metrics)``.
     """
-    dev = resolve_device(device)
-    raw = make_raw_step(config, optimizer, num_items=num_items)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    raw = make_raw_step(config, optimizer, num_items=num_items, mesh=mesh,
+                        state_template=state_template)
     lq = None if log_q is None else torch.as_tensor(log_q, dtype=torch.float32).to(dev)
     tok = None if item_tokens is None else torch.as_tensor(item_tokens).to(dev)
 
@@ -331,15 +348,14 @@ class Trainer:
         text_embedding_init: np.ndarray | None = None,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-            )
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.optimizer = make_optimizer(config.training)
         self._text_embedding_init = text_embedding_init
-        self.train_step = make_train_step(
+        self._step_args = dict(log_q=log_q, item_tokens=item_tokens, num_items=num_items)
+        # On a mesh the step is built in fit(), against the state's layout.
+        self.train_step = None if mesh is not None else make_train_step(
             config, self.optimizer, log_q, item_tokens=item_tokens, num_items=num_items,
             device=self.device,
         )
@@ -353,9 +369,17 @@ class Trainer:
         from twotower_tpu_torch.training.state import init_train_state
 
         return init_train_state(
-            self.config, self.optimizer, num_users, num_items,
+            self.config, self.optimizer, num_users, num_items, mesh=self.mesh,
             text_embedding_init=self._text_embedding_init, device=self.device,
         )
+
+    def _ensure_step(self, state: TrainState) -> None:
+        if self.train_step is None:
+            args = self._step_args
+            self.train_step = make_train_step(
+                self.config, self.optimizer, args["log_q"], item_tokens=args["item_tokens"],
+                num_items=args["num_items"], mesh=self.mesh, state_template=state,
+            )
 
     def _write(self, payload: dict[str, float], step: int) -> None:
         for w in self.writers:
@@ -368,6 +392,8 @@ class Trainer:
         from twotower_tpu_torch.utils.profiling import StepTimer
 
         cfg = self.config.training
+        self._ensure_step(state)
+        # The negatives' generator: the same on every rank of a mesh.
         rng = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         stopper = EarlyStopping(patience=cfg.patience)
         result = TrainResult(state=state)
@@ -380,7 +406,7 @@ class Trainer:
         # Host-side dedup precompute (training/host_dedup.py) on the
         # prefetch thread: the step skips its sort + segment dedup.
         dedup_deads: tuple[int, int | None] | None = None
-        if wants_host_dedup(self.config, None):
+        if wants_host_dedup(self.config, self.mesh):
             item_dead = (
                 dead_row(state.params["item_embedding"])
                 if self.config.retrieval.candidate_sampling == "in_batch"
@@ -396,7 +422,12 @@ class Trainer:
 
         # Segmented dispatch (training.segment_steps > 1): S stacked batches
         # a prefetch item, stepped in one runner call.
-        seg = cfg.segment_steps
+        seg = cfg.segment_steps if self.mesh is None else 0
+        if cfg.segment_steps > 1 and self.mesh is not None:
+            logger.warning(
+                "training.segment_steps=%d ignored on the mesh path (per-step batches a "
+                "rank); use --device-loop for device-resident mesh epochs", cfg.segment_steps,
+            )
         segment_run = make_segment_runner(self.train_step) if seg > 1 else None
 
         train_time = 0.0

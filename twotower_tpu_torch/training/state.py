@@ -214,12 +214,16 @@ class TrainState:
     """Training state. On the sparse path ``opt_state`` covers the dense
     (tower) params and ``table_state`` holds the packed per-table Adam
     moments (``training/sparse.py``); on the dense path ``opt_state``
-    covers every parameter and ``table_state`` is None."""
+    covers every parameter and ``table_state`` is None. On a mesh the
+    tensors are this rank's shard (``sharding``)."""
 
     step: int
     params: Any
     opt_state: Any
     table_state: Any = None
+    # On a mesh: how the tensors above are sharded
+    # (``parallel.sharding.StateSharding``); None on one device.
+    sharding: Any = None
 
     @classmethod
     def create(cls, params: Any, optimizer: Optimizer) -> "TrainState":
@@ -227,8 +231,25 @@ class TrainState:
         return cls(step=0, params=params, opt_state=optimizer.init(params))
 
     @classmethod
-    def for_config(cls, params: Any, optimizer: Optimizer, config: Any) -> "TrainState":
-        """State matching ``config.training.sparse_table_updates``."""
+    def for_config(cls, params: Any, optimizer: Optimizer, config: Any,
+                   mesh: Any = None) -> "TrainState":
+        """State matching ``config.training.sparse_table_updates``. With
+        ``mesh`` (``parallel.mesh.Mesh``), ``params`` are the full
+        parameters and the state is this rank's shard on the mesh's device:
+        the sparse mesh path's layout (tables and packed moments row-sharded
+        over the combined axis) where ``parallel.use_sparse_mesh_path``, else
+        the dense one (tables over ``model``, the optimizer over every leaf),
+        as the JAX ``init_train_state`` lays them out."""
+        if mesh is not None:
+            from dataclasses import replace
+
+            from twotower_tpu_torch.parallel.sharding import StateSharding, shard_tree
+            from twotower_tpu_torch.parallel.sparse_spmd import use_sparse_mesh_path
+
+            sparse = use_sparse_mesh_path(config)
+            local = shard_tree(params, mesh, config.mesh, sparse_mesh=sparse)
+            state = cls.create_sparse(local, optimizer) if sparse else cls.create(local, optimizer)
+            return replace(state, sharding=StateSharding(mesh, sparse))
         if config.training.effective_sparse_updates():
             return cls.create_sparse(params, optimizer)
         return cls.create(params, optimizer)
@@ -259,22 +280,22 @@ def init_train_state(
     device: str | torch.device | None = None,
 ) -> TrainState:
     """Fresh seeded state on ``device`` (``cuda`` unless the caller asks for
-    the CPU), laid out for ``training.sparse_table_updates``. Single device
-    only. The parameters are drawn on the CPU and moved, so one seed gives
-    the same initial model on every device. ``text_embedding_init``: an
-    optional ``[padded_rows(text_buckets), embedding_dim]`` text table in
-    place of the random one (``two_tower.init_params``)."""
+    the CPU), laid out for ``training.sparse_table_updates``; with ``mesh``,
+    this rank's shard on the mesh's device (``TrainState.for_config``). The
+    parameters are drawn on the CPU and moved, so one seed gives the same
+    initial model on every device and at every world size.
+    ``text_embedding_init``: an optional ``[padded_rows(text_buckets),
+    embedding_dim]`` text table in place of the random one
+    (``two_tower.init_params``)."""
     from twotower_tpu_torch.models import two_tower
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device mesh path is not ported yet (ROADMAP.md, Queue 1: multi-GPU)"
-        )
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     gen = torch.Generator().manual_seed(config.training.seed)
     params = two_tower.init_params(
         gen, config.model, num_users, num_items, text_embedding_init=text_embedding_init
     )
+    if mesh is not None:
+        return TrainState.for_config(params, optimizer, config, mesh=mesh)
     return TrainState.for_config(tree_map(lambda t: t.to(dev), params), optimizer, config)
 
 

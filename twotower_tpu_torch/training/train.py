@@ -19,8 +19,15 @@ local HF tokenizer gives the ids and its model's word embeddings the text
 table's init (``features/transformer_encoder.py``). Runs on ``--device
 cuda`` (the default) or ``--device cpu``.
 
-The flags of the JAX CLI that belong to slices not ported yet are kept and
-exit with a message naming the ROADMAP.md item (``UNPORTED``).
+``--mesh`` trains over the ``(data, model)`` mesh of ``config.mesh``
+(``parallel/``): one process a rank, started by a launcher (``torchrun``
+sets ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``) or by hand, one process each
+with ``--coordinator HOST:PORT --num-processes N --process-id I`` (the
+coordinator may also be an init URL such as ``file:///shared/path``);
+with neither, a world of one process. Every rank reads the same data and
+feeds its data shard's rows of each batch (``--shard-input``: a streamed
+rank reads only its own row groups); rank 0 writes the artifacts, and
+the checkpoint holds the single-device layout.
 """
 
 from __future__ import annotations
@@ -36,14 +43,6 @@ from twotower_tpu_torch.config import Config, load_config, parse_cli_overrides
 from twotower_tpu_torch.logging_utils import get_logger, setup_logging
 
 logger = get_logger(__name__)
-
-# flag (argparse dest) -> the ROADMAP.md item that ports it.
-UNPORTED = {
-    "shard_input": "ROADMAP.md, Queue 1: multi-GPU",
-    "mesh": "ROADMAP.md, Queue 1: multi-GPU",
-    "coordinator": "ROADMAP.md, Queue 1: multi-GPU",
-}
-
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -94,8 +93,8 @@ def build_argparser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--shard-input", action="store_true",
-        help="with --stream-batches on a multi-process run: each process reads only "
-        "its own batch rows (not ported yet: ROADMAP.md, Queue 1: multi-GPU)",
+        help="with --stream-batches on a mesh: each rank reads only the parquet row "
+        "groups holding its own batch rows instead of streaming the whole artifact",
     )
     p.add_argument(
         "--batch-rows", type=int, default=1 << 20,
@@ -132,20 +131,21 @@ def build_argparser() -> argparse.ArgumentParser:
         "drawn there, every step one replay of the step captured as a CUDA graph "
         "(eager on --device cpu)",
     )
-    p.add_argument("--mesh", action="store_true",
-                   help="train over all visible devices (not ported yet)")
-    p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host coordinator address (not ported yet)")
+    p.add_argument(
+        "--mesh", action="store_true",
+        help="train over the (data x model) mesh of config.mesh: the ranks of the "
+        "process group (torchrun or --coordinator), else a world of one process; "
+        "composes with --device-loop",
+    )
+    p.add_argument(
+        "--coordinator", type=str, default=None,
+        help="multi-process rendezvous HOST:PORT (or an init URL such as "
+        "file:///shared/path), with --num-processes and --process-id; omit for "
+        "torchrun or a one-process run",
+    )
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
-
-
-def unported_flags(args) -> list[str]:
-    """Messages for the flags of slices not ported yet that ``args`` uses."""
-    return [
-        f"--{dest.replace('_', '-')} is not ported yet ({where})"
-        for dest, where in UNPORTED.items()
-        if getattr(args, dest, None)
-    ]
 
 
 def strided_subsample(n: int, cap: int) -> np.ndarray:
@@ -238,12 +238,27 @@ def _resolve_forced_rung(args) -> None:
         )
 
 
+def _build_mesh(args, config: Config):
+    """The mesh of ``--mesh`` (None without it)."""
+    if not args.mesh:
+        return None
+    from twotower_tpu_torch.parallel import build_mesh
+
+    return build_mesh(config.mesh, device=args.device)
+
+
+def _is_main(mesh) -> bool:
+    """Whether this process writes the run's artifacts (rank 0, or no mesh)."""
+    return mesh is None or mesh.rank == 0
+
+
 def run(args, config: Config) -> dict:
     from twotower_tpu_torch.data import Preprocessor
 
     _resolve_forced_rung(args)
+    mesh = _build_mesh(args, config)
     if args.prepared_dir:
-        return _run_prepared(args, config)
+        return _run_prepared(args, config, mesh)
     if args.stream_batches:
         # The stream rung reads a prepare-data artifact; the in-memory path
         # has none, so it trains on the host loop and reports so.
@@ -258,7 +273,7 @@ def run(args, config: Config) -> dict:
         "data: %d train / %d val / %d test; %d users, %d items",
         len(splits.train), len(splits.val), len(splits.test), num_users, num_items,
     )
-    ckpt_dir, manager, writers = _outputs(args, config)
+    ckpt_dir, manager, writers = _outputs(args, config, mesh)
     config, encoder, text_embedding_init = _resolve_text_tower(
         config, splits.train.text is not None or splits.train.title is not None
     )
@@ -283,11 +298,13 @@ def run(args, config: Config) -> dict:
         train_cols=_EncodedColumns(splits.train.user_idx, splits.train.item_idx),
         val_arrays=(splits.val.user_idx, splits.val.item_idx),
         test_arrays=(splits.test.user_idx, splits.test.item_idx),
+        mesh=mesh,
     )
 
 
-def _outputs(args, config: Config):
-    """The checkpoint directory, its manager and the metric writers."""
+def _outputs(args, config: Config, mesh=None):
+    """The checkpoint directory, its manager and the metric writers (a
+    mesh's other ranks write no metrics file)."""
     from twotower_tpu_torch.utils.checkpoint import CheckpointManager
     from twotower_tpu_torch.utils.tracking import build_writers
 
@@ -297,11 +314,12 @@ def _outputs(args, config: Config):
         async_save=config.training.async_checkpoint,
         min_interval_s=config.training.checkpoint_min_interval_s,
     )
-    writers = build_writers(args.writers, jsonl_path=ckpt_dir / "metrics.jsonl")
+    writers = build_writers(args.writers if _is_main(mesh) else [],
+                            jsonl_path=ckpt_dir / "metrics.jsonl")
     return ckpt_dir, manager, writers
 
 
-def _run_prepared(args, config: Config) -> dict:
+def _run_prepared(args, config: Config, mesh=None) -> dict:
     """``--prepared-dir``: the encoded columns and vocab of a prepare-data
     artifact, without preprocessing again; ``--exec auto`` chooses the rung
     from the device's and the host's free memory (``training.rungs``)."""
@@ -336,7 +354,7 @@ def _run_prepared(args, config: Config) -> dict:
                 args.shuffle_buffer = decision.shuffle_buffer
     if args.shuffle_buffer is None:
         args.shuffle_buffer = 1 << 23
-    ckpt_dir, manager, writers = _outputs(args, config)
+    ckpt_dir, manager, writers = _outputs(args, config, mesh)
     config, encoder, text_embedding_init = _resolve_text_tower(config, dataset.has_text)
     item_tokens = dataset.build_item_tokens(encoder)
     _log_text_tower(config, item_tokens)
@@ -346,9 +364,15 @@ def _run_prepared(args, config: Config) -> dict:
     if args.stream_batches:
         # One classification scan materializes both held-out splits.
         splits = dataset.load_splits(rule, ("val", "test"))
+        host_spans = None
+        if mesh is not None:
+            from twotower_tpu_torch.parallel.sharding import process_row_spans
+
+            host_spans = process_row_spans(mesh, config.training.batch_size)
         train_pipeline = dataset.train_pipeline(
             rule, config.training.batch_size, seed=config.training.seed,
-            shuffle_buffer=args.shuffle_buffer,
+            shuffle_buffer=args.shuffle_buffer, host_spans=host_spans,
+            shard_input=args.shard_input,
         )
     else:
         # All three splits in one full-corpus scan.
@@ -372,6 +396,7 @@ def _run_prepared(args, config: Config) -> dict:
         train_pipeline=train_pipeline,
         val_arrays=(val["user_idx"], val["item_idx"]),
         test_arrays=(test["user_idx"], test["item_idx"]),
+        mesh=mesh,
     )
 
 
@@ -392,10 +417,13 @@ def _fit_and_summarize(
     test_arrays,
     train_cols=None,
     train_pipeline=None,
+    mesh=None,
 ) -> dict:
     """Config snapshot -> the rung's trainer -> fit -> artifacts + summary.
     The device loop takes ``train_cols``; the host loop a ``BatchPipeline``
-    over them, or the streamed ``train_pipeline``."""
+    over them (on a mesh, the rank's rows of each batch), or the streamed
+    ``train_pipeline``. On a mesh every rank trains and evaluates, and rank
+    0 alone writes the files."""
     from twotower_tpu_torch.data import BatchPipeline
     from twotower_tpu_torch.evaluation import Evaluator
     from twotower_tpu_torch.training.device_loop import DeviceDataset, DeviceTrainer
@@ -404,12 +432,15 @@ def _fit_and_summarize(
 
     # The RESOLVED config beside the checkpoint: evaluate-model rebuilds the
     # trained shape from it without the overrides (load_config_for_checkpoint).
+    main_rank = _is_main(mesh)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    (ckpt_dir / "config.json").write_text(config.to_json())
-    if item_tokens is not None:
-        np.savez_compressed(ckpt_dir / "item_tokens.npz", tokens=item_tokens)
+    if main_rank:
+        (ckpt_dir / "config.json").write_text(config.to_json())
+        if item_tokens is not None:
+            np.savez_compressed(ckpt_dir / "item_tokens.npz", tokens=item_tokens)
 
-    evaluator = Evaluator(config, num_items, item_tokens=item_tokens, device=args.device)
+    evaluator = Evaluator(config, num_items, item_tokens=item_tokens, device=args.device,
+                          mesh=mesh)
     val_u, val_i = val_arrays
     cap = getattr(args, "val_rows", None)
     if cap and cap < len(val_u):
@@ -436,6 +467,7 @@ def _fit_and_summarize(
             num_items=num_items,
             text_embedding_init=text_embedding_init,
             device=args.device,
+            mesh=mesh,
         )
         if args.device_loop:
             train_input = DeviceDataset.from_interactions(
@@ -444,8 +476,16 @@ def _fit_and_summarize(
         elif train_pipeline is not None:
             train_input = train_pipeline
         else:
+            host_spans = None
+            if mesh is not None:
+                from twotower_tpu_torch.parallel.sharding import process_row_spans
+
+                host_spans = process_row_spans(mesh, config.training.batch_size)
+                logger.info("mesh input: rank %d/%d feeds rows %s of each %d-row batch",
+                            mesh.rank, mesh.world, host_spans, config.training.batch_size)
             train_input = BatchPipeline(
-                train_cols, config.training.batch_size, seed=config.training.seed
+                train_cols, config.training.batch_size, seed=config.training.seed,
+                host_spans=host_spans,
             )
         state = trainer.init_state(num_users, num_items)
         start_epoch = 0
@@ -463,7 +503,8 @@ def _fit_and_summarize(
     # and the final state is persisted only when nothing was saved yet;
     # without validation nothing saved in the loop, so the final state is
     # always saved ("epoch" is where --resume restarts).
-    save_vocab(ckpt_dir)
+    if main_rank:
+        save_vocab(ckpt_dir)
     if evaluate_fn is None or manager.latest_step() is None:
         manager.save(
             int(result.state.step),
@@ -500,7 +541,11 @@ def _fit_and_summarize(
         ),
         "device": str(trainer.device),
     }
-    (ckpt_dir / "train_summary.json").write_text(json.dumps(summary, indent=2))
+    if mesh is not None:
+        summary["mesh"] = {"data": mesh.num_data, "model": mesh.num_model, "rank": mesh.rank,
+                           "backend": mesh.backend}
+    if main_rank:
+        (ckpt_dir / "train_summary.json").write_text(json.dumps(summary, indent=2))
     return summary
 
 
@@ -516,14 +561,33 @@ def main(argv: list[str] | None = None) -> int:
             "temporal 80/10/10 protocol); for --split random use the "
             "in-memory --data path"
         )
-    unported = unported_flags(args)
-    if unported:
-        parser.error("; ".join(unported))
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        parser.error("--coordinator needs --num-processes and --process-id")
     resolve_device(args.device)  # no GPU: raise before any work
     config = load_config(args.config, parse_cli_overrides(args.override))
-    summary = run(args, config)
+    owned = join_process_group(args)
+    try:
+        summary = run(args, config)
+    finally:
+        if owned:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     print(json.dumps(summary))
     return 0
+
+
+def join_process_group(args) -> bool:
+    """With ``--mesh`` or ``--coordinator``, join the process group before
+    anything else (the checkpoint manager asks for the world size); True
+    when this call created it. Shared with evaluate-model."""
+    if not (args.mesh or args.coordinator):
+        return False
+    from twotower_tpu_torch.parallel.mesh import default_backend, initialize_multihost
+
+    return initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                backend=default_backend(args.device))
 
 
 if __name__ == "__main__":

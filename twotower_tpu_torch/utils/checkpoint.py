@@ -18,6 +18,14 @@ numpy arrays::
 ``mu`` and ``nu`` for adam and adamw, ``sum_of_squares`` for adagrad, none
 for sgd. An adam checkpoint therefore has the layout it had before the
 other optimizers existed, and restores as it did.
+
+On a mesh (a state with ``sharding``, ``parallel/sharding.py``) saving is
+collective: every rank calls ``save``, the shards are gathered, and rank 0
+writes the single-device layout, so ``evaluate-model`` and ``serve-model``
+read a mesh checkpoint unchanged. ``restore`` into a sharded template reads
+that layout and shards it to the mesh at hand (any layout, any world
+size). Async saving is off when the world holds more than one process, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,6 +48,16 @@ from twotower_tpu_torch.training.state import (
 )
 
 logger = get_logger(__name__)
+
+
+def _world() -> tuple[int, int]:
+    """``(rank, world size)`` of the process group, ``(0, 1)`` without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
 
 FORMAT = "twotower_tpu_torch.checkpoint.v1"
 
@@ -116,7 +134,11 @@ class CheckpointManager:
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
-        self.async_save = bool(async_save)
+        # Saves of a world of several processes are collective and synchronous.
+        self.async_save = bool(async_save) and _world()[1] == 1
+        if async_save and not self.async_save:
+            logger.info("async_save requested but %d processes need the collective "
+                        "synchronous save; disabled", _world()[1])
         # Minimum seconds between ACCEPTED save requests (0 = none).
         self.min_interval_s = float(min_interval_s)
         self._lock = threading.Lock()
@@ -262,6 +284,18 @@ class CheckpointManager:
         path = self._step_dir(step)
         if self._worker_err is not None:
             self.flush()  # re-raise a prior async failure
+        if state.sharding is not None:
+            from twotower_tpu_torch.parallel.sharding import gather_state
+
+            state = gather_state(state)  # collective: every rank is here
+            rank, world = _world()
+            if world > 1:
+                if rank == 0:
+                    self._save_now(step, state_to_tree(state), metrics=metrics, extra=extra)
+                import torch.distributed as dist
+
+                dist.barrier()  # the save is on disk before any rank goes on
+                return path
         if not self.async_save:
             return self._save_now(step, state_to_tree(state), metrics=metrics, extra=extra)
         self._ensure_worker()
@@ -333,20 +367,28 @@ class CheckpointManager:
         self, state_template: TrainState, step: int | None = None
     ) -> tuple[TrainState, dict]:
         """Restore onto the template's device, checking its structure and
-        shapes. Returns (state, metadata dict)."""
+        shapes; a sharded template gets this rank's shard of the saved
+        state. Returns (state, metadata dict)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         path = self._step_dir(step)
         template = state_to_tree(state_template)
-        device = state_template.params["user_embedding"].device
+        sh = state_template.sharding
+        device = "cpu" if sh is not None else state_template.params["user_embedding"].device
         tree = torch.load(path / "state.pt", map_location=device, weights_only=True)
+        if sh is not None:
+            from twotower_tpu_torch.parallel.sharding import shard_tree
+
+            tree = shard_tree(tree, sh.mesh, sh.mesh.config, sparse_mesh=sh.sparse_mesh)
         _check_like(tree, template)
         meta_path = path / "meta.json"
         meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
         logger.info("restored checkpoint step %d from %s", step, path)
-        return tree_to_state(tree), meta
+        state = tree_to_state(tree)
+        state.sharding = sh
+        return state, meta
 
     def _prune(self) -> None:
         steps = self.all_steps()
