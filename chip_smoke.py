@@ -230,9 +230,40 @@
    rank, dropped_ids 0, the gathered state equal to the one-device steps
    after one step (10b's rule) and after five (rtol 5e-3 / atol 5e-4), the
    median step ms. In 10b and 10c at most 1e-5 of a leaf's other elements
-   may fall outside the tolerance, within 2 lr a step. Prints one
-   {"mesh": ...} JSON line. NCCL across two or more ranks needs a second
-   card and is not run.
+   may fall outside the tolerance, within 2 lr a step. Then, on each rank,
+   the mesh state stays sharded: a collective save (each rank writes its
+   own table rows), a restore at the same layout into a fresh template
+   (each rank reads its own rows), equal to the saved state bit for bit,
+   and one Evaluator(mesh=) pass over 4,096 random rows at the Evaluator's
+   own batch, 4,096 (the corpus encoded from table rows looked up from
+   their owners); each one's seconds and rise of the rank's peak device
+   memory (max_memory_allocated after reset_peak_memory_stats, over what
+   was allocated before) must stay under one full table (the user table,
+   512 MB), the pass's over its own corpus shard and exact-search buffers;
+   and no result of a mesh collective in the three may reach the smallest
+   table's size (the item table, 256 MB). Rank 0 restores the checkpoint on one device (which assembles the
+   whole tree, by design): equal to the gathered state bit for bit, and
+   its one-device Evaluator equal to the mesh pass within 1e-6. (d) The
+   scaling tools: scaling-bench (parallel/scaling.py::run_scaling) at the
+   main path's width over nccl, one spawned process a rank, worlds 1 and 2
+   (2 is skipped on a one-card machine, as JAX skips it); scaling_model's
+   predictions for 2x1, 1x2, 2x2 and 4x1 at 4,096 rows a card from (d)'s
+   measured step and from (b)'s replayed one (predictions, not
+   measurements). Prints one {"mesh": ...} JSON line. NCCL across two or
+   more ranks needs a second card and is not run.
+8c. Sharded serving (after phase 10, whose checkpoint it serves): phase
+   8's 10M-item model (seed 42) as RetrievalIndex(mesh=[cuda:0] * 4), one
+   process over four shards, in each corpus precision: recommend for 256
+   users and similar_items for 64 items equal to the single-device index's
+   (scores rtol 1e-5, int8's equal; ids equal outside tied ranks); the
+   sharded search's device ms at B=1, 64, 256 (median of 10) beside phase
+   8's single-device figure. Then build_service(shard_corpus=True) over
+   10b's train-model --mesh checkpoint: by default over every visible
+   card; over [cuda:0] * 4, /recommend, /recommend_by_history and
+   /similar_items through CoalescedRoutes equal to the one-device
+   service's, and one reload that rebuilds the four shards. Prints one
+   {"sharded_serving": ...} JSON line. python3 chip_smoke.py --mesh-only
+   runs phases 1-3, 10 and 8c alone (no result line), for debugging.
 9. Times: per kernel, at the main path's shape, the device time of one
    call, beside its bound, its plain version and a library yardstick (one
    torch.matmul(u, v.T) at the same shape, which the port never calls).
@@ -2302,6 +2333,130 @@ def serve_full_size(card: str) -> dict:
     return {"variants": results, "end_to_end": e2e, "reload_s": reload_s}
 
 
+SHARDS_8C = 4  # phase 8c's index: four shards sharing cuda:0
+
+
+def sharded_service(cfg, ckpt: Path, devices: list):
+    """build_service's service over ``ckpt``, its index sharded over
+    ``devices`` (which may repeat; build_service(shard_corpus=True) takes
+    every visible card)."""
+    from twotower_tpu_torch.serving import RetrievalIndex
+    from twotower_tpu_torch.serving.api import RecommendService
+
+    def factory(step=None):
+        return RetrievalIndex.from_checkpoint(cfg, ckpt, step=step, mesh=devices)
+
+    index = factory()
+    return RecommendService(index, index.vocab, default_k=cfg.serving.top_k,
+                            max_batch=cfg.serving.max_batch_size, index_factory=factory,
+                            max_exclude=cfg.serving.max_exclude,
+                            max_history=cfg.serving.max_history)
+
+
+def serve_sharded(card: str, single: dict, ckpt: Path) -> dict:
+    """Phase 8c: phase 8's 10M-item model (seed 42) served by a
+    RetrievalIndex sharded over [cuda:0] * 4 in each corpus precision,
+    held against the single-device index on 256 users (recommend) and 64
+    items (similar_items): scores within rtol 1e-5 (the int8 corpora's
+    equal), ids equal outside tied ranks; each shard's search device ms at
+    B = 1, 64, 256 beside phase 8's single-device figure (``single``, None
+    in a partial run). Then build_service(shard_corpus=True) on ``ckpt``
+    (phase 10b's train-model --mesh checkpoint, 1M x 500k) shards over every
+    visible card, and the service over [cuda:0] * 4 serves through
+    CoalescedRoutes: /recommend, /recommend_by_history and /similar_items
+    equal to the single-device service's, and one reload."""
+    from twotower_tpu_torch.config import Config, load_config_for_checkpoint
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.serving import RetrievalIndex
+    from twotower_tpu_torch.serving.api import CoalescedRoutes, build_service
+
+    base = Config()
+    params = two_tower.init_params(torch.Generator(device="cuda").manual_seed(42), base.model,
+                                   SERVE_USERS, SERVE_ITEMS)
+    rng = np.random.default_rng(44)
+    users = rng.integers(0, SERVE_USERS, 256)
+    items = rng.integers(0, SERVE_ITEMS, 64)
+    queries = {b: torch.as_tensor(rng.integers(0, SERVE_USERS, b)).cuda() for b in SERVE_BATCHES}
+    mesh = [torch.device("cuda", 0)] * SHARDS_8C
+    out = {}
+    for label, itype, dtype in SERVE_VARIANTS:
+        cfg = serving_config(itype, dtype, base)
+        index = RetrievalIndex(cfg, params, SERVE_USERS, SERVE_ITEMS, device="cuda")
+        want = index.recommend(users, SERVE_K), index.similar_items(items, SERVE_K)
+        del index
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        index = RetrievalIndex(cfg, params, SERVE_USERS, SERVE_ITEMS, mesh=mesh)
+        torch.cuda.synchronize()
+        row = {"build_s": time.perf_counter() - t, "shards": len(index.corpus),
+               "shard_rows": index.shard_rows}
+        got = index.recommend(users, SERVE_K), index.similar_items(items, SERVE_K)
+        flips = 0
+        for name, g, w in zip(("recommend", "similar_items"), got, want):
+            flips += same_topk(g, w, f"8c {label} {name}")
+            if index.quantized and not np.array_equal(g[0], w[0]):
+                raise RuntimeError(f"8c {label} {name}: int8 scores differ from one device")
+        with torch.no_grad():
+            for b, q in queries.items():
+                emb = two_tower.embed_users(params, q, cfg.model)
+                row[f"B{b}"] = {"ms": time_ms(lambda: index._search(emb, SERVE_K), reps=10),
+                                "single_ms": None if single is None
+                                else single["variants"][label][f"B{b}"]["ms"]}
+        out[label] = row
+        log(f"  {label}, {row['shards']} shards of {row['shard_rows']} rows on cuda:0: build "
+            f"{row['build_s']:.3f} s; = one device on {len(users)} users and {len(items)} items "
+            f"(scores rtol 1e-5{', int8 equal' if index.quantized else ''}, ids outside ties; "
+            f"{flips} tied ranks with other ids); search ms sharded (one device) "
+            + ", ".join(f"B={b} {row[f'B{b}']['ms']:.4f} ({row[f'B{b}']['single_ms']})"
+                        for b in SERVE_BATCHES) + f" ({card})")
+        del index
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = load_config_for_checkpoint(ckpt)
+    visible = build_service(cfg, str(ckpt), device="cuda", shard_corpus=True)
+    want = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if visible.index.mesh != want:
+        raise RuntimeError(f"build_service(shard_corpus=True) sharded over {visible.index.mesh}")
+    del visible
+    one = build_service(cfg, str(ckpt), device="cuda")
+    service = sharded_service(cfg, ckpt, mesh)
+    routes = {name: CoalescedRoutes(svc, window_ms=cfg.serving.coalesce_window_ms)
+              for name, svc in (("one", one), ("sharded", service))}
+    n_users, n_items = service.index.num_users, service.index.num_items
+    payloads = [("recommend", {"user_idx": rng.integers(0, n_users, 32).tolist(), "k": 20}),
+                ("recommend_by_history",
+                 {"history_idx": rng.integers(0, n_items, (8, 5)).tolist(), "k": 20}),
+                ("similar_items", {"item_idx": rng.integers(0, n_items, 16).tolist(), "k": 20})]
+    bodies = {name: run_routes(r, payloads) for name, r in routes.items()}
+    vocab = service.index.vocab
+
+    def rows(body):  # (scores, item indices) of a response, through the vocab
+        return (np.array([r["scores"] for r in body["results"]]),
+                np.array([vocab.items.encode(np.asarray(r["items"], object))
+                          for r in body["results"]]))
+
+    for (route, _), got, ref in zip(payloads, bodies["sharded"], bodies["one"]):
+        same_topk(rows(got), rows(ref), f"8c service {route}", atol=1e-6)
+    t = time.perf_counter()
+    info = service.reload(release_first=True)
+    reload_s = time.perf_counter() - t
+    again = run_routes(CoalescedRoutes(service), payloads[:1])[0]
+    if info["generation"] != 1 or len(service.index.corpus) != SHARDS_8C or (
+            again["results"] != bodies["sharded"][0]["results"]):
+        raise RuntimeError(f"8c: the sharded service's reload did not rebuild it: {info}")
+    log(f"  build_service(shard_corpus=True) over phase 10b's checkpoint ({n_users} users x "
+        f"{n_items} items): every visible card by default ({want}); over {SHARDS_8C} shards "
+        "on cuda:0, /recommend, /recommend_by_history and /similar_items through "
+        f"CoalescedRoutes = the one-device service; reload (release first) {reload_s:.3f} s "
+        f"({card})")
+    del one, service, routes
+    torch.cuda.empty_cache()
+    return {"variants": out, "service_reload_s": reload_s}
+
+
 def run_serving(card: str, ckpt: Path, test_users: np.ndarray, best_step: int) -> dict:
     """Serving phase: returns the numbers it printed."""
     log("  part 1: card against CPU, small")
@@ -2707,6 +2862,158 @@ def mesh_cli(card: str, work: Path) -> dict:
     return out
 
 
+# Phase 10c's sharded state: the evaluation's rows, at the Evaluator's own
+# batch (EVAL_B, evaluate-model's and the Trainer's validation batch), and
+# the most each of the save, the restore at the mesh layout and the
+# evaluation pass may raise a rank's peak device memory over the pass's own
+# buffers: one full table (the 1M-row user table). The pass's own buffers
+# (pass_buffers) are its corpus shard, as JAX holds it, and the exact
+# search's: a [rows a rank, exact_scan_chunk(rows)] float32 score chunk and
+# the two-pass search's top-k blocks, [rows, k, 64] float32 for the running
+# set, the chunk's, the new set and twice for their concatenation. No
+# collective of the three may return a table's worth of rows: the largest
+# result of any Axis collective stays under the smallest table (the item
+# table).
+MESH_EVAL_ROWS, MESH_EVAL_B = 4096, EVAL_B
+MESH_RISE_LIMIT = NUM_USERS * MAIN_D * 4
+MESH_GATHER_LIMIT = NUM_ITEMS * MAIN_D * 4
+
+
+def mesh_eval_rows() -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(22)
+    return (rng.integers(0, NUM_USERS, MESH_EVAL_ROWS).astype(np.int32),
+            rng.integers(0, NUM_ITEMS, MESH_EVAL_ROWS).astype(np.int32))
+
+
+def peak_rise(fn):
+    """``fn()``'s result, seconds, and the rise of this process's peak
+    device memory over what was allocated when it started."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, torch.cuda.max_memory_allocated() - before
+
+
+@contextlib.contextmanager
+def largest_collective(seen: list):
+    """Within the block, the byte size of every result of the mesh's four
+    collectives (``Axis.all_reduce``, ``all_gather``, ``all_to_all``,
+    ``reduce_scatter``) is appended to ``seen``."""
+    from twotower_tpu_torch.parallel.mesh import Axis
+
+    names = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
+    orig = {n: getattr(Axis, n) for n in names}
+
+    def spy(fn):
+        def call(self, t):
+            out = fn(self, t)
+            seen.append(out.numel() * out.element_size())
+            return out
+        return call
+
+    for n in names:
+        setattr(Axis, n, spy(orig[n]))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(Axis, n, orig[n])
+
+
+def pass_buffers(cfg, mesh) -> int:
+    """Bytes of the mesh evaluation pass's own buffers on a rank (the
+    comment above MESH_EVAL_B)."""
+    from twotower_tpu_torch.ops.topk import exact_scan_chunk
+    from twotower_tpu_torch.parallel.spmd import corpus_shard_rows
+
+    rows = MESH_EVAL_B // mesh.num_data
+    k = min(max(cfg.retrieval.top_k_eval), NUM_ITEMS)
+    shard = corpus_shard_rows(NUM_ITEMS, mesh.num_model, cfg.retrieval.eval_exact) * MAIN_D
+    shard *= getattr(torch, cfg.retrieval.eval_corpus_dtype).itemsize
+    return shard + rows * exact_scan_chunk(rows) * 4 + 5 * rows * k * 64 * 4
+
+
+def shard_bytes(state) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        [state.params, state.table_state, state.opt_state.mu, state.opt_state.nu]))
+
+
+def sharded_state_phase(cfg, opt, mesh, state, ckpt: Path):
+    """Phase 10c, on each of the two ranks: the mesh state saved (each rank
+    writes its own rows), restored at the same layout into a fresh
+    template (each rank reads its own rows) and held to the saved state bit
+    for bit, and one Evaluator(mesh=) pass at its own batch; each one's
+    seconds, peak device memory rise (under one full table over the pass's
+    own buffers) and largest collective result (under the smallest table).
+    Returns the numbers and the pass's metrics."""
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.training import init_train_state
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt)
+    seen = {"save": [], "restore": [], "eval": []}
+    with largest_collective(seen["save"]):
+        _, save_s, save_rise = peak_rise(lambda: mgr.save(int(state.step), state))
+    template = init_train_state(cfg, opt, NUM_USERS, NUM_ITEMS, mesh=mesh)
+    with largest_collective(seen["restore"]):
+        (restored, _), restore_s, restore_rise = peak_rise(lambda: mgr.restore(template))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([restored.params, restored.table_state, restored.opt_state.mu]),
+        tree_leaves([state.params, state.table_state, state.opt_state.mu])))
+    if not same or restored.opt_state.count != state.opt_state.count:
+        raise RuntimeError(f"rank {mesh.rank}: the mesh restore differs from the saved state")
+    del restored, template
+    torch.cuda.empty_cache()
+    users, items = mesh_eval_rows()
+    ev = Evaluator(cfg, NUM_ITEMS, mesh=mesh)
+    if ev.batch_size != MESH_EVAL_B:
+        raise RuntimeError(f"10c: the Evaluator's batch is {ev.batch_size}, not {MESH_EVAL_B}")
+    with largest_collective(seen["eval"]):
+        metrics, eval_s, eval_rise = peak_rise(lambda: ev.evaluate(state.params, users, items))
+    out = {"shard_bytes": shard_bytes(state), "save_s": save_s, "save_rise": save_rise,
+           "restore_s": restore_s, "restore_rise": restore_rise, "eval_s": eval_s,
+           "eval_rise": eval_rise, "eval_buffers": pass_buffers(cfg, mesh),
+           **{f"{k}_largest_collective": max(v, default=0) for k, v in seen.items()}}
+    over = {k: v for k, v in (("save_rise", save_rise), ("restore_rise", restore_rise),
+                              ("eval_rise", eval_rise - out["eval_buffers"]))
+            if v >= MESH_RISE_LIMIT}
+    over.update({k: v for k, v in out.items()
+                 if k.endswith("_largest_collective") and v >= MESH_GATHER_LIMIT})
+    if over:
+        raise RuntimeError(f"rank {mesh.rank}: a table's worth of memory or of a collective's "
+                           f"result ({over} bytes; limits {MESH_RISE_LIMIT} over the pass's own "
+                           f"buffers, {MESH_GATHER_LIMIT} a collective): {out}")
+    return out, metrics
+
+
+def restored_one(cfg, ckpt: Path, full, metrics: dict, result: dict) -> None:
+    """Rank 0 of phase 10c: the mesh checkpoint restored on one device equals
+    the gathered state bit for bit, and the one-device Evaluator on it
+    equals the mesh pass within 1e-6."""
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.training import init_train_state, make_optimizer
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+
+    one = init_train_state(cfg, make_optimizer(cfg.training), NUM_USERS, NUM_ITEMS)
+    one, _ = CheckpointManager(ckpt).restore(one)
+    pairs = zip(tree_leaves([one.params, one.table_state, one.opt_state.mu, one.opt_state.nu]),
+                tree_leaves([full.params, full.table_state, full.opt_state.mu,
+                             full.opt_state.nu]))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise RuntimeError("10c: the mesh checkpoint on one device differs from the gathered state")
+    users, items = mesh_eval_rows()
+    want = Evaluator(cfg, NUM_ITEMS, device="cuda").evaluate(
+        one.params, users, items)
+    bad = {k: (metrics[k], v) for k, v in want.items() if abs(metrics[k] - v) > 1e-6}
+    if bad or set(want) != set(metrics):
+        raise RuntimeError(f"10c: the mesh evaluation != the one-device evaluation: {bad}")
+    result["eval"] = want
+    del one
+
+
 def _gloo_rank(rank: int, num_model: int, store: str, out: str) -> None:
     """One of two ranks on the one card over gloo (phase 10c): the full-width
     mesh state, MESH_GLOO_STEPS steps on the batches of phase 10b, the
@@ -2775,11 +3082,15 @@ def _gloo_rank(rank: int, num_model: int, store: str, out: str) -> None:
         if i == 0:
             first = gather_state(state)  # held against one step below
     kernels.fused_in_batch_softmax_block = block
+    ckpt = Path(store).parent / "ckpt"
+    sharded, metrics = sharded_state_phase(cfg, opt, mesh, state, ckpt)
     full = gather_state(state)
     result = {"rank": rank, "offsets": offsets, "launches": launches, "dropped": dropped,
               "step_ms": times, "loss": float(m["loss"]), "refusal": refusal,
-              "shard_rows": state.params["user_embedding"].shape[0]}
+              "shard_rows": state.params["user_embedding"].shape[0], "sharded": sharded}
     del state
+    if rank == 0:  # one device: the checkpoint assembles the whole tree, by design
+        restored_one(cfg, ckpt, full, metrics, result)
     if rank == 0:
         what = f"10c {2 // num_model}x{num_model}"
         lr = cfg.training.learning_rate
@@ -2835,13 +3146,82 @@ def mesh_gloo_two_ranks(card: str, work: Path) -> dict:
             f"over {MESH_GLOO_STEPS} steps; dropped_ids 0; gathered state = one-device steps "
             f"{r0['checks']} (loss {r0['loss']:.6f} vs {r0['one_device_loss']:.6f}); median "
             f"step {step_ms:.3f} ms ({card})")
+        for r in (r0, r1):
+            sh = r["sharded"]
+            log(f"  {layout} rank {r['rank']}: live shard {sh['shard_bytes'] / 2**20:.1f} MiB; "
+                f"save {sh['save_s']:.3f} s, restore at {layout} {sh['restore_s']:.3f} s, "
+                f"evaluation pass ({MESH_EVAL_ROWS} rows, batch {MESH_EVAL_B}) "
+                f"{sh['eval_s']:.3f} s; peak device memory rise save "
+                f"{sh['save_rise'] / 2**20:.1f} MiB, restore {sh['restore_rise'] / 2**20:.1f} MiB, "
+                f"evaluation {sh['eval_rise'] / 2**20:.1f} MiB, of which the pass's own "
+                f"buffers {sh['eval_buffers'] / 2**20:.1f} MiB (limit: one table, "
+                f"{MESH_RISE_LIMIT / 2**20:.0f} MiB, over those buffers); largest collective "
+                f"result save / restore / evaluation "
+                + " / ".join(f"{sh[f'{w}_largest_collective'] / 2**20:.2f}"
+                             for w in ("save", "restore", "eval"))
+                + f" MiB (limit: the item table, {MESH_GATHER_LIMIT / 2**20:.0f} MiB) ({card})")
+        log(f"  {layout}: restored = saved bit for bit on each rank and, assembled on one "
+            f"device, = the gathered state; mesh evaluation = one-device evaluation within "
+            f"1e-6 ({r0['eval']})")
         out[layout] = {"step_ms": step_ms, "launches_rank1": row_launches(r1["launches"]),
-                       "offsets_rank1": r1["offsets"][0], "checks": r0["checks"]}
+                       "offsets_rank1": r1["offsets"][0], "checks": r0["checks"],
+                       "sharded_state": {r["rank"]: r["sharded"] for r in (r0, r1)}}
     return out
 
 
+SCALING_STEPS = 20
+SCALING_LAYOUTS = [(2, 1), (1, 2), (2, 2), (4, 1)]
+
+
+def scaling_tools(card: str, replay_ms: float) -> dict:
+    """Phase 10d: scaling-bench (parallel/scaling.py::run_scaling) at the main
+    path's width over nccl, one spawned process a rank, for worlds of 1 and
+    2 (a world past the visible cards is skipped, as JAX skips it); then
+    scaling_model's predictions for 2x1, 1x2, 2x2 and 4x1 at the main
+    path's batch a card, from 10d's measured step and from 10b's
+    replayed one."""
+    from twotower_tpu_torch.config import Config
+    from twotower_tpu_torch.parallel import scaling
+    from twotower_tpu_torch.parallel import scaling_model as sm
+
+    cfg = Config().with_overrides(MESH_OVER)
+    worlds = [1, 2]
+    results = scaling.run_scaling(cfg, worlds, device="cuda", num_users=NUM_USERS,
+                                  num_items=NUM_ITEMS, steps=SCALING_STEPS, warmup=5)
+    measured = [r["devices"] for r in results]
+    if measured != [n for n in worlds if n <= torch.cuda.device_count()] or measured[0] != 1:
+        raise RuntimeError(f"scaling-bench measured worlds {measured}")
+    first = results[0]
+    if first["mesh"] != {"data": 1, "model": 1} or first["efficiency"] != 1.0:
+        raise RuntimeError(f"scaling-bench at a world of one: {first}")
+    log(f"  scaling-bench over nccl: {json.dumps(results)} (worlds past "
+        f"{torch.cuda.device_count()} card(s) skipped) ({card})")
+    predictions = {}
+    for label, compute in (("scaling_bench_step", first["step_ms"]),
+                           ("replayed_step", replay_ms)):
+        for d, m in SCALING_LAYOUTS:
+            layout = cfg.with_overrides({"training.batch_size": MAIN_B * d * m,
+                                         "mesh.num_data": d, "mesh.num_model": m})
+            rep = sm.preset_report(layout, compute_ms=compute,
+                                   dense_params=sm.dense_tower_params(layout))
+            predictions[f"{label}/{d}x{m}"] = {
+                "compute_ms": compute, "ici_ms": rep.ici_ms, "dcn_ms": rep.dcn_ms,
+                "a2a_bytes": rep.traffic.a2a_per_device,
+                "ici_bytes": rep.traffic.ici_per_device,
+                "efficiency_serial": rep.efficiency_serial,
+                "efficiency_overlapped": rep.efficiency_overlapped}
+    log("  scaling_model predictions (NVLink 4 450 GB/s a direction, batch 4096 a card; "
+        "predictions, not measurements): " + "; ".join(
+            f"{k}: serial {v['efficiency_serial']}, overlapped {v['efficiency_overlapped']} "
+            f"(compute {v['compute_ms']:.4f} ms, links {v['ici_ms']} ms)"
+            for k, v in predictions.items()))
+    return {"scaling_bench": results, "predictions": predictions}
+
+
 def run_mesh_phase(card: str):
-    """Phase 10: the probe, one rank over nccl, two ranks over gloo."""
+    """Phase 10: the probe, one rank over nccl, two ranks over gloo, the
+    scaling tools. Returns 10b's and 10c's numbers, 10d's, and 10b's
+    train-model --mesh checkpoint."""
     log("phase 10: the mesh")
     work = fresh_dir(ROOT / "build" / "chip_smoke_mesh")
     work.mkdir(parents=True)
@@ -2852,9 +3232,12 @@ def run_mesh_phase(card: str):
     one = mesh_nccl_one_rank(card, work)
     log("phase 10c: two ranks on the card over gloo, 2x1 and 1x2, at full width")
     two = mesh_gloo_two_ranks(card, work)
-    log(json.dumps({"mesh": {"probe": probe, "nccl_1_rank": one, "gloo_2_ranks": two}}))
+    log("phase 10d: the scaling tools")
+    tools = scaling_tools(card, one["replay_ms"])
+    log(json.dumps({"mesh": {"probe": probe, "nccl_1_rank": one, "gloo_2_ranks": two,
+                             "scaling": tools}}))
     log(f"  phase 10: {time.perf_counter() - t:.1f} s")
-    return one, two
+    return one, two, tools, work / "cli_host"
 
 
 def kernel_times(errs, launches, report):
@@ -2934,9 +3317,11 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     errs = check_kernels(CHECK_SHAPES)
 
-    if sys.argv[1:] == ["--mesh-only"]:  # a partial run: phases 1-3 and 10, no result line
-        run_mesh_phase(card)
-        log("phases 1-3 and 10 passed (a partial run: no result line)")
+    if sys.argv[1:] == ["--mesh-only"]:  # a partial run: phases 1-3, 10 and 8c, no result line
+        *_, mesh_ckpt = run_mesh_phase(card)
+        log("phase 8c: sharded serving")
+        serve_sharded(card, None, mesh_ckpt)
+        log("phases 1-3, 10 and 8c passed (a partial run: no result line)")
         return 0
 
     log("phase 4: small-input step, card against CPU")
@@ -3006,7 +3391,14 @@ def main() -> int:
     cpu_index = check_cpu_index(ROOT / "build" / "chip_smoke_slice", test_users, card)
     log(json.dumps({"cpu_index": cpu_index}))
 
-    mesh_one, mesh_two = run_mesh_phase(card)
+    mesh_one, mesh_two, _, mesh_ckpt = run_mesh_phase(card)
+
+    log("phase 8c: sharded serving (after phase 10, whose train-model --mesh checkpoint "
+        "it serves)")
+    t = time.perf_counter()
+    sharded = serve_sharded(card, serving, mesh_ckpt)
+    log(json.dumps({"sharded_serving": sharded}))
+    log(f"  phase 8c: {time.perf_counter() - t:.1f} s")
 
     log("phase 9: kernel times")
     rows = kernel_times(errs, launches, report)

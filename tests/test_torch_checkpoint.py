@@ -60,8 +60,13 @@ def test_save_restore_roundtrip(tmp_path):
         np.testing.assert_equal(got[part], want[part])
     assert meta["metrics"]["recall@10"] == 0.5
     assert meta["epoch"] == 3 and meta["format"] == FORMAT
-    # The state file is tensors and plain containers only.
-    torch.load(tmp_path / "ckpt" / "step_0000000010" / "state.pt", weights_only=True)
+    # The state files are tensors and plain containers only: one a writing
+    # rank (one here), beside the manifest.
+    step_dir = tmp_path / "ckpt" / "step_0000000010"
+    files = sorted(step_dir.glob("rank_*.pt"))
+    assert [f.name for f in files] == ["rank_00000.pt"] and (step_dir / "manifest.json").exists()
+    for f in files:
+        torch.load(f, weights_only=True)
 
 
 def test_restore_checks_the_template(tmp_path):
@@ -69,6 +74,11 @@ def test_restore_checks_the_template(tmp_path):
     mgr.save(1, _state(0, 50, 30))
     with pytest.raises(ValueError, match="shape"):
         mgr.restore(_state(0, 500, 30))
+    # A leaf saved in another dtype than the template's is refused, not cast.
+    other = _state(0, 50, 30)
+    other.params["user_embedding"] = other.params["user_embedding"].double()
+    with pytest.raises(ValueError, match="dtype float32 != template float64"):
+        mgr.restore(other)
 
 
 def test_prune_keeps_latest(tmp_path):

@@ -103,11 +103,23 @@ def test_serve_model_cli_answers_with_the_evaluation(trained, evaluated, monkeyp
 
 
 def test_serve_model_flags(trained, monkeypatch, capsys):
+    """``--shard-corpus`` serves an index sharded over the named device (the
+    CPU here, as JAX's over its one CPU device); a missing aiohttp exits
+    naming it."""
     import sys
 
-    with pytest.raises(SystemExit) as e:
-        serve_main(["--device", "cpu", "--checkpoint-dir", str(trained), "--shard-corpus"])
-    assert e.value.code != 0 and "ROADMAP.md" in capsys.readouterr().err
+    from twotower_tpu_torch.serving import api
+
+    web = pytest.importorskip("aiohttp.web")
+    built = []
+    monkeypatch.setattr(api, "build_service",
+                        lambda *a, **kw: built.append(build_service(*a, **kw)) or built[-1])
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: None)
+    assert serve_main(["--device", "cpu", "--checkpoint-dir", str(trained),
+                       "--shard-corpus"]) == 0
+    (svc,) = built
+    assert svc.index.mesh == [torch.device("cpu")] and svc.index.params is None
+    monkeypatch.undo()
     monkeypatch.setitem(sys.modules, "aiohttp", None)  # import raises ImportError
     with pytest.raises(SystemExit) as e:
         serve_main(["--device", "cpu", "--checkpoint-dir", str(trained)])

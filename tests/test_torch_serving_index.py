@@ -215,11 +215,17 @@ def test_from_checkpoint_records_step_and_pins(tmp_path):
 def test_unported_options_raise(tmp_path):
     _, cfg = _configs("tpu_mips", "auto")
     params = two_tower.init_params(torch.Generator().manual_seed(0), cfg.model, 5, 5)
-    with pytest.raises(NotImplementedError, match="Sharded serving and the scaling tools"):
-        RetrievalIndex(cfg, params, 5, 5, mesh=object(), device="cpu")
+    # A sharded index names its devices by mesh= alone, and at least one
+    # (sharded serving itself: tests/test_torch_sharded_serving.py).
+    with pytest.raises(ValueError, match="mesh="):
+        RetrievalIndex(cfg, params, 5, 5, mesh=["cpu"], device="cpu")
+    with pytest.raises(ValueError, match="mesh="):
+        RetrievalIndex(cfg, params, 5, 5, mesh=[])
     # Item tokens need a model with a text tower (as in the JAX index).
-    with pytest.raises(ValueError, match="no text tower"):
-        RetrievalIndex(cfg, params, 5, 5, item_tokens=np.zeros((5, 2), np.int32), device="cpu")
+    for mesh in (None, ["cpu"] * 2):
+        with pytest.raises(ValueError, match="no text tower"):
+            RetrievalIndex(cfg, params, 5, 5, item_tokens=np.zeros((5, 2), np.int32),
+                           mesh=mesh, device=None if mesh else "cpu")
     idx = RetrievalIndex(cfg, params, 5, 5, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
         idx.recommend(np.array([5]), k=2)

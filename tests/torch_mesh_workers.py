@@ -307,3 +307,89 @@ def shards(rank, world, workdir, spec):
             "gathered": bridge.gathered_state_to_numpy(state),
             "fresh": bridge.gathered_state_to_numpy(fresh),
             "sparse": state.sharding.sparse_mesh}
+
+
+def a2a_bytes(rank, world, workdir, spec):
+    """Bytes this rank hands ``all_to_all_single`` (its send buffers) over
+    one sparse mesh step from a fresh state, and the step's drop count."""
+    from twotower_tpu_torch.parallel.mesh import Axis
+    from twotower_tpu_torch.parallel.sharding import data_rows
+    from twotower_tpu_torch.training.loop import make_raw_step
+    from twotower_tpu_torch.training.state import init_train_state, make_optimizer
+
+    cfg = _config(spec["overrides"])
+    mesh = _mesh(cfg)
+    opt = make_optimizer(cfg.training)
+    state = init_train_state(cfg, opt, spec["num_users"], spec["num_items"], mesh=mesh)
+    step = make_raw_step(cfg, opt, num_items=spec["num_items"], mesh=mesh, state_template=state)
+    sent = []
+    orig = Axis.all_to_all
+
+    def spy(self, t):
+        sent.append(t.numel() * t.element_size())
+        return orig(self, t)
+
+    Axis.all_to_all = spy
+    try:
+        batch = {k: data_rows(mesh, torch.as_tensor(v)) for k, v in spec["batch"].items()}
+        _, m = step(state, batch, torch.Generator().manual_seed(1))
+    finally:
+        Axis.all_to_all = orig
+    return {"bytes": sum(sent), "calls": len(sent), "dropped": float(m["dropped_ids"])}
+
+
+def sharded_checkpoint(rank, world, workdir, spec):
+    """The sharded checkpoint on this layout, with a spy on ``Axis.all_gather``
+    over each of the save, the restore and an ``Evaluator(mesh=)`` pass
+    (the rows and the row width of everything each returned). ``spec["mode"]``:
+    ``"save"``: the bridged ``spec["state"]`` saved at each step of
+    ``spec["steps"]`` (with ``spec["metrics"]``); ``"restore"``: a fresh
+    state of this layout restored from ``spec["step"]`` (default latest).
+    Returns the gathered state (gathered after the spied windows), the
+    metrics, and the manager's steps."""
+    from pathlib import Path
+
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.parallel.mesh import Axis
+    from twotower_tpu_torch.training.state import init_train_state, make_optimizer
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = _config(spec["overrides"])
+    mesh = _mesh(cfg)
+    mgr = CheckpointManager(Path(spec["ckpt_dir"]), keep=spec.get("keep", 3))
+    orig = Axis.all_gather
+    seen = {"save": [], "restore": [], "encode": []}
+    window = []
+
+    def spy(self, t):
+        out = orig(self, t)
+        window.append((out.shape[0], out[0].numel() if out.dim() else 1))
+        return out
+
+    if spec["mode"] == "save":
+        state = bridge.sharded_state_from_numpy(spec["state"], mesh, cfg)
+    else:
+        state = init_train_state(cfg, make_optimizer(cfg.training), spec["num_users"],
+                                 spec["num_items"], mesh=mesh)
+    Axis.all_gather = spy
+    try:
+        if spec["mode"] == "save":
+            window = seen["save"]
+            for i, step in enumerate(spec["steps"]):
+                state.step = step
+                mgr.save(step, state, metrics={"recall@10": spec["metrics"][i]},
+                         extra={"epoch": i})
+        else:
+            window = seen["restore"]
+            state, meta = mgr.restore(state, step=spec.get("step"))
+            assert meta["format"] == spec.get("format", "twotower_tpu_torch.checkpoint.v2")
+        window = seen["encode"]
+        ev = Evaluator(cfg, spec["num_items"], batch_size=spec["eval_batch"], mesh=mesh)
+        metrics = ev.evaluate(state.params, spec["users"], spec["items"])
+    finally:
+        Axis.all_gather = orig
+    return {"state": bridge.gathered_state_to_numpy(state), "metrics": metrics,
+            "gathered": {k: np.asarray(v, np.int64).reshape(-1, 2) for k, v in seen.items()},
+            "steps": np.asarray(mgr.all_steps()), "best": mgr.best_step(),
+            "shard_rows": state.params["user_embedding"].shape[0]}

@@ -8,4 +8,8 @@ the CPU. Entry points (the train step, the ``Trainer`` and ``Evaluator``,
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from twotower_tpu_torch.config import Config, load_config
+
 __version__ = "0.1.0"
+
+__all__ = ["Config", "load_config", "__version__"]

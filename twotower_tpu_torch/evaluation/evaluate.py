@@ -106,7 +106,8 @@ def restore_params(
 ):
     """Restore params from a checkpoint via a freshly initialized template
     on ``device``; with ``mesh``, this rank's shard of them in the mesh's
-    layout (``TrainState.for_config(mesh=)``). With no ``step``, the
+    layout (``TrainState.for_config(mesh=)``), read from the rows it holds
+    only, whatever layout saved them. With no ``step``, the
     best-metric durable step is preferred over the newest one: after async
     save starvation the newest checkpoint is the post-patience final
     state."""

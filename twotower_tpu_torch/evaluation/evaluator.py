@@ -15,7 +15,8 @@ end (the counterpart of the JAX evaluator's single fetch after its
 ``lax.scan``). With ``mesh=`` the encoded corpus stays row-sharded over
 ``model`` and the queries split over ``data`` (``parallel/spmd.py``); the
 parameters are the rank's shard in the layout ``TrainState.for_config(
-mesh=)`` gives them. The JAX evaluator's time-budgeted scan segments guard a
+mesh=)`` gives them, and the table rows each rank needs are looked up from
+their owners (no rank holds a whole table). The JAX evaluator's time-budgeted scan segments guard a
 watchdog of its TPU transport and have no counterpart here:
 ``retrieval.eval_device_scan`` and ``retrieval.eval_scan_budget_s`` are
 accepted and change nothing.
@@ -159,7 +160,7 @@ class Evaluator:
 
         mesh = self.mesh
         encode, eval_batch = self._sharded
-        full, corpus = encode(params)
+        params, corpus = encode(params)
         bs, per = self.batch_size, self.batch_size // mesh.num_data
         lo = mesh.d_idx * per
         keys = eval_keys(self.config, self.max_k)
@@ -172,7 +173,7 @@ class Evaluator:
             rows[1, :real] = item_idx[start:start + real]
             rows[2, :real] = 1
             u, it, w = torch.as_tensor(rows[:, lo:lo + per]).to(self.device)
-            sums += eval_batch(full, corpus, u, it, w.float())
+            sums += eval_batch(params, corpus, u, it, w.float())
         host = mesh.data.all_reduce(sums).tolist()
         out = {k: v / max(host[-1], 1.0) for k, v in zip(keys, host)} if n else {}
         logger.info(

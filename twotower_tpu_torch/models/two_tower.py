@@ -124,6 +124,16 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
+def param_count(params: Params) -> int:
+    """Number of parameters: the elements of every leaf (tables, their
+    padding rows included, and towers), as the JAX ``param_count``."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return int(params.numel())
+
+
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Round to ``dtype`` and carry the value on in float32."""
     return x if dtype == torch.float32 else x.to(dtype).float()

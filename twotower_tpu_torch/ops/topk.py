@@ -248,6 +248,7 @@ def _topk_mips_scan(query, item_emb, k: int, chunk_size: int, n_real: int):
         for base in range(0, n_real, chunk_size):
             scores = _chunk_scores(query, item_emb, base, chunk_size, n_real)
             c_vals, c_pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+            del scores  # one [B, chunk] score buffer alive at a time, not two
             top_vals, top_idx = _merge(top_vals, top_idx, c_vals, c_pos + base, k)
     return top_vals, top_idx
 
@@ -335,6 +336,7 @@ def _twopass_core(query, item_emb, k: int, chunk_size: int, block: int, n_real: 
             rows = scores.view(batch, nb, block)
             c_max, c_pos = torch.topk(rows.amax(dim=2), min(k, nb), dim=1)
             c_rows = torch.gather(rows, 1, c_pos[:, :, None].expand(-1, -1, block))
+            del scores, rows  # one [B, chunk] score buffer alive at a time, not two
             top_max, sel = torch.topk(torch.cat([top_max, c_max], dim=1), k, dim=1)
             top_blk = torch.gather(torch.cat([top_blk, c_pos + base // block], dim=1), 1, sel)
             top_rows = torch.gather(torch.cat([top_rows, c_rows], dim=1), 1,
@@ -342,6 +344,11 @@ def _twopass_core(query, item_emb, k: int, chunk_size: int, block: int, n_real: 
     vals, pos = torch.topk(top_rows.reshape(batch, k * block), k, dim=1)
     ids = torch.gather(top_blk, 1, pos // block) * block + pos % block
     return vals, ids
+
+
+def _inverse(scale: torch.Tensor) -> torch.Tensor:
+    """``1 / scale``, and 0 where the scale is 0."""
+    return torch.where(scale > 0, 1.0 / torch.clamp(scale, min=1e-30), torch.zeros_like(scale))
 
 
 def _absmax_scale(x: torch.Tensor, dim: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -353,8 +360,7 @@ def _absmax_scale(x: torch.Tensor, dim: int | None = None) -> tuple[torch.Tensor
     else:
         absmax = torch.maximum(x.amax(dim=dim), -x.amin(dim=dim))
     scale = absmax / 127.0
-    inv = torch.where(scale > 0, 1.0 / torch.clamp(scale, min=1e-30), torch.zeros_like(scale))
-    return scale, inv
+    return scale, _inverse(scale)
 
 
 def _round_to_int8(scaled: torch.Tensor) -> torch.Tensor:
@@ -363,20 +369,36 @@ def _round_to_int8(scaled: torch.Tensor) -> torch.Tensor:
     return scaled.round_().clamp_(-127, 127).to(torch.int8)
 
 
-def quantize_corpus(item_emb: torch.Tensor, *, per_row: bool = False):
+def corpus_scale(parts) -> torch.Tensor:
+    """The global int8 scale (max |x| / 127) of a corpus held in parts (the
+    shards of a sharded index), on the first part's device: the scale
+    ``quantize_corpus`` takes of the whole corpus."""
+    dev = parts[0].device
+    absmax = torch.stack([torch.maximum(x.amax(), -x.amin()).float().to(dev) for x in parts])
+    return absmax.amax() / 127.0
+
+
+def quantize_corpus(item_emb: torch.Tensor, *, per_row: bool = False,
+                    scale: torch.Tensor | None = None):
     """Symmetric int8 quantization of a corpus: ``(q [N, D] int8, scale)``
     with ``q * scale ~= item_emb``, as the JAX ``quantize_corpus``.
 
-    ``per_row=False``: one float32 scale (a 0-d tensor) for the corpus; raw
-    integer scores are then monotonic in the true scores per query row, so
-    the search applies the scale to the final ``[B, k]`` values only.
-    ``per_row=True``: a float32 scale per row (``[N]``), which multiplies
-    the scores before the top-k; all-zero rows (layout padding) get 0."""
+    ``per_row=False``: one float32 scale (a 0-d tensor) for the corpus
+    (``scale`` when given: a shard of a corpus quantized with the whole
+    corpus's, ``corpus_scale``); raw integer scores are then monotonic in
+    the true scores per query row, so the search applies the scale to the
+    final ``[B, k]`` values only. ``per_row=True``: a float32 scale per row
+    (``[N]``), which multiplies the scores before the top-k; all-zero rows
+    (layout padding) get 0."""
     x = item_emb.float()
     if per_row:
         scale, inv = _absmax_scale(x, dim=1)
         return _round_to_int8(x * inv[:, None]), scale
-    scale, inv = _absmax_scale(x)
+    if scale is None:
+        scale, inv = _absmax_scale(x)
+    else:
+        scale = scale.to(x.device)
+        inv = _inverse(scale)
     return _round_to_int8(x * inv), scale
 
 
@@ -489,53 +511,84 @@ def topk_mips_approx(
     return vals, ids
 
 
-def _shard_topk(search, query, shard, k: int, axis, num_items: int | None):
-    """Cross-shard merge of a search over a corpus row-sharded over ``axis``:
-    this shard's top-``min(k, rows)`` over its real rows (rows at global
-    index >= ``num_items`` are padding and never scored; a shard with fewer
-    real rows than that fills with -inf), ids offset to global ones, the
-    candidates all-gathered along ``axis`` and merged by an exact top-k."""
+def _shard_candidates(search, query, shard, k: int, offset: int, num_items: int | None):
+    """One shard's candidates for the cross-shard merge: its top-``min(k,
+    rows)`` over its real rows (rows at global index >= ``num_items`` are
+    padding and never scored; a shard with fewer real rows than that fills
+    with -inf), ids offset by ``offset`` to global ones, on the shard's
+    device."""
     rows = shard.shape[0]
-    offset = axis.index * rows
     local_k = min(k, rows)
     valid = rows if num_items is None else max(0, min(num_items - offset, rows))
     b = query.shape[0]
-    vals = torch.full((b, local_k), float("-inf"), device=query.device)
-    idx = torch.zeros((b, local_k), dtype=torch.long, device=query.device)
+    vals = torch.full((b, local_k), float("-inf"), device=shard.device)
+    idx = torch.zeros((b, local_k), dtype=torch.long, device=shard.device)
     if valid:
         kk = min(local_k, valid)
         vals[:, :kk], idx[:, :kk] = search(query, shard, kk, valid)
-    idx = idx + offset
-    all_vals = axis.all_gather(vals).view(axis.size, b, local_k)
-    all_idx = axis.all_gather(idx).view(axis.size, b, local_k)
-    all_vals = all_vals.permute(1, 0, 2).reshape(b, axis.size * local_k)
-    all_idx = all_idx.permute(1, 0, 2).reshape(b, axis.size * local_k)
-    out_vals, sel = torch.topk(all_vals, k, dim=1)
-    return out_vals, torch.gather(all_idx, 1, sel)
+    return vals, idx + offset
+
+
+def _merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """The exact merge: the top-``k`` of every shard's candidates ``[B,
+    shards * local_k]`` (the global top-k lies in their union)."""
+    out_vals, sel = torch.topk(vals, k, dim=1)
+    return out_vals, torch.gather(idx, 1, sel)
+
+
+def _shard_topk(search, query, shards, k: int, axis, num_items: int | None):
+    """The cross-shard search over a corpus row-sharded in equal shards.
+    With ``axis`` (a ``parallel.mesh.Axis``) ``shards`` is this rank's
+    shard and the candidates are all-gathered along the axis; without, it
+    is the list of every shard (each on its own device, which may repeat),
+    searched in turn in one process with the queries copied to each shard's
+    device, and only each shard's ``[B, k]`` candidates come back to the
+    queries' device. ``search(query, shard, kk, valid, s)`` searches shard
+    ``s``. One merge for both forms."""
+    b = query.shape[0]
+    if axis is not None:
+        rows = shards.shape[0]
+        vals, idx = _shard_candidates(lambda *a: search(*a, axis.index), query, shards, k,
+                                      axis.index * rows, num_items)
+        local_k = vals.shape[1]
+        vals = axis.all_gather(vals).view(axis.size, b, local_k).permute(1, 0, 2)
+        idx = axis.all_gather(idx).view(axis.size, b, local_k).permute(1, 0, 2)
+        return _merge_candidates(vals.reshape(b, -1), idx.reshape(b, -1), k)
+    rows = shards[0].shape[0]
+    if any(s.shape[0] != rows for s in shards):
+        raise ValueError("the shards of a sharded corpus must have equal rows")
+    parts = [_shard_candidates(lambda *a, s=s: search(*a, s), query.to(shard.device), shard,
+                               k, s * rows, num_items)
+             for s, shard in enumerate(shards)]
+    vals = torch.cat([v.to(query.device) for v, _ in parts], dim=1)
+    idx = torch.cat([i.to(query.device) for _, i in parts], dim=1)
+    return _merge_candidates(vals, idx, k)
 
 
 def topk_mips_sharded(
     query_emb: torch.Tensor,
-    item_emb_shard: torch.Tensor,
+    item_emb_shard,
     k: int,
     *,
-    axis,
+    axis=None,
     chunk_size: int | None = None,
     num_items: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over a corpus row-sharded over ``axis`` (a
-    ``parallel.mesh.Axis``; every rank of it calls with the same queries):
-    each rank searches its shard (the two-pass search for shards of more
-    than ``4 k`` blocks of 64, the plain scan below), and the per-shard
-    candidates merge exactly, since the global top-k lies in the union of
-    the per-shard top-ks (JAX ``topk_mips_sharded``). ``num_items``: the
-    real corpus size; shard rows past it are padding. Returns the global
-    ``(scores, ids)`` on every rank."""
+    """Exact top-k over a corpus row-sharded in equal shards (JAX
+    ``topk_mips_sharded``): each shard is searched (the two-pass search for
+    shards of more than ``4 k`` blocks of 64, the plain scan below) and the
+    per-shard candidates merge exactly, since the global top-k lies in the
+    union of the per-shard top-ks. ``axis``: a ``parallel.mesh.Axis``, every
+    rank of which calls with the same queries and its own shard; None: the
+    one-process form, ``item_emb_shard`` the list of every shard, on
+    devices that may differ from the queries'. ``num_items``: the real
+    corpus size; shard rows past it are padding. Returns the global
+    ``(scores, ids)`` on the queries' device (on every rank)."""
     if chunk_size is None:
         chunk_size = exact_scan_chunk(query_emb.shape[0])
     block = 64
 
-    def search(q, shard, kk, valid):
+    def search(q, shard, kk, valid, _s):
         if shard.shape[0] > 4 * kk * block and chunk_size >= block:
             return topk_mips_twopass(q, shard, kk, chunk_size=chunk_size // block * block,
                                      block=block, num_valid=valid)
@@ -546,23 +599,34 @@ def topk_mips_sharded(
 
 def topk_mips_approx_sharded(
     query_emb: torch.Tensor,
-    item_emb_shard: torch.Tensor,
+    item_emb_shard,
     k: int,
     *,
-    axis,
+    axis=None,
     recall_target: float = 0.95,
     query_chunk: int = 256,
     item_chunk: int = 1 << 21,
     num_items: int | None = None,
+    item_scale_shard=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``topk_mips_approx`` on each shard of a corpus row-sharded over
-    ``axis``, merged as ``topk_mips_sharded`` merges (JAX
+    """``topk_mips_approx`` on each shard of a row-sharded corpus, merged as
+    ``topk_mips_sharded`` merges, in either form (JAX
     ``topk_mips_approx_sharded``): the only difference from the exact
-    search is the corpus's resident precision."""
+    search is the corpus's resident precision. ``item_scale_shard``: the
+    int8 corpus's scales, a 0-d tensor (the global scale, replicated) or
+    the per-row scales of each shard (this rank's ``[rows]`` slice with
+    ``axis``; the list of every shard's without)."""
 
-    def search(q, shard, kk, valid):
+    def scale_of(s):
+        if item_scale_shard is None or isinstance(item_scale_shard, torch.Tensor):
+            return item_scale_shard
+        return item_scale_shard[s]
+
+    def search(q, shard, kk, valid, s):
+        scale = scale_of(s)
         return topk_mips_approx(q, shard, kk, recall_target=recall_target,
                                 query_chunk=query_chunk, item_chunk=item_chunk,
-                                num_valid=valid)
+                                num_valid=valid,
+                                item_scale=None if scale is None else scale.to(shard.device))
 
     return _shard_topk(search, query_emb, item_emb_shard, k, axis, num_items)

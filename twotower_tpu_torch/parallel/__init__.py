@@ -1,5 +1,11 @@
 """Parallelism on ``torch.distributed``: the mesh, the sharding rules, the
-all-to-all lookups and row updates, and the mesh train and eval steps."""
+all-to-all lookups and row updates, and the mesh train and eval steps.
+
+Every name of the JAX package's ``parallel`` is here but two:
+``batch_shardings`` and ``state_shardings`` build JAX ``NamedSharding``s,
+and a state's ``StateSharding`` (``sharding.py``) takes their place. The
+scaling model and benchmark are the modules ``scaling_model`` and
+``scaling``, as in the JAX package."""
 
 from twotower_tpu_torch.parallel.a2a import (
     alltoall_lookup,

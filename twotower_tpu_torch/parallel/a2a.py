@@ -71,10 +71,12 @@ class _AllToAllLookup(torch.autograd.Function):
         sorted_ids, sorted_owner, dest, slot, order, bucket_pos, dropped = _bucket_by_owner(
             ids, rps, s, cap)
         # Send buffer [S+1, cap]: row j holds the ids bound for index j; the
-        # padding points at row 0 of j's shard (in bounds on the owner).
-        send = (torch.arange(s + 1, device=ids.device) * rps)[:, None].repeat(1, cap)
-        send[dest, slot] = sorted_ids
-        recv = axis.all_to_all(send[:s].reshape(-1))  # the ids each index wants from me
+        # padding points at row 0 of j's shard (in bounds on the owner). Ids
+        # travel as int32, as in JAX (parallel/scaling_model.py counts them so).
+        send = (torch.arange(s + 1, device=ids.device, dtype=torch.int32) * rps)[:, None]
+        send = send.repeat(1, cap)
+        send[dest, slot] = sorted_ids.to(torch.int32)
+        recv = axis.all_to_all(send[:s].reshape(-1)).long()  # the ids each index wants
         local = torch.clamp(recv - me * rps, 0, rps - 1)
         resp = axis.all_to_all(table_shard[local])  # the rows of the ids I sent
         pick = sorted_owner * cap + torch.clamp(bucket_pos, max=cap - 1)
@@ -174,13 +176,13 @@ def alltoall_row_update(
     r, e = grads.shape
     cap = r if capacity is None else min(capacity, r)
     sorted_ids, _, dest, slot, order, _, dropped = _bucket_by_owner(ids, rps, s, cap)
-    send_ids = torch.full((s + 1, cap), -1, dtype=torch.long, device=ids.device)
-    send_ids[dest, slot] = sorted_ids
+    send_ids = torch.full((s + 1, cap), -1, dtype=torch.int32, device=ids.device)
+    send_ids[dest, slot] = sorted_ids.to(torch.int32)
     # Accumulate: duplicate ids share a slot, so their gradients combine
     # before the exchange and the owner only merges across ranks.
     send_grads = grads.new_zeros((s + 1, cap, e), dtype=torch.float32)
     send_grads.index_put_((dest, slot), grads[order].float(), accumulate=True)
-    recv_ids = axis.all_to_all(send_ids[:s].reshape(-1))
+    recv_ids = axis.all_to_all(send_ids[:s].reshape(-1)).long()
     recv_grads = axis.all_to_all(send_grads[:s].reshape(s * cap, e))
     # Owner-side dedup; invalid entries (padding, id -1) sort last under the
     # sentinel row ``rps`` and are masked out.

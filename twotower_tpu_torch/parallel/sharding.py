@@ -20,7 +20,11 @@ replicated. Batches split over ``data``: data shard ``d`` holds global rows
 ``[d * B/D, (d+1) * B/D)``.
 
 A sharded ``TrainState`` carries its ``StateSharding`` (``state.sharding``),
-so a checkpoint save gathers it and a restore shards it again.
+from which a checkpoint save knows which rows each rank writes and a
+restore which rows each rank reads (``utils/checkpoint.py``): neither
+gathers. ``gather_state``, ``gather_tree`` and ``gather_params`` assemble
+the whole state on every rank; the bridge and the tests use them, and no
+save, restore or evaluation does.
 """
 
 from __future__ import annotations

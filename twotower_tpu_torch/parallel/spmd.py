@@ -22,10 +22,11 @@ island), each rank here runs its share with explicit collectives:
   (``parallel/sparse_spmd.py``) where ``use_sparse_mesh_path``, else the
   dense one.
 - ``make_sharded_eval_step``: the encoded corpus row-sharded over
-  ``model`` (padded as JAX pads it), queries split over ``data``, the
-  per-shard candidates merged over ``model`` (``ops.topk``'s sharded
-  searches) and the metric sums all-reduced over ``data``, so every rank
-  sees the same metrics.
+  ``model`` (padded as JAX pads it), each shard encoded from table rows
+  looked up from their owners (no rank gathers a table), queries split
+  over ``data``, the per-shard candidates merged over ``model``
+  (``ops.topk``'s sharded searches) and the metric sums all-reduced over
+  ``data``, so every rank sees the same metrics.
 
 The device-resident epoch on a mesh is ``training.device_loop``'s epoch
 program with the mesh step (``make_epoch_fn(mesh=...)``).
@@ -238,6 +239,12 @@ def corpus_shard_rows(num_items: int, num_model: int, exact: bool) -> int:
     return local
 
 
+# Ids a rank looks up in one all-to-all while encoding the corpus: bounds the
+# exchange buffers and the tower's activations (the corpus shard and the
+# scores are the evaluation's only larger buffers).
+ENCODE_IDS = 16384
+
+
 def make_sharded_eval_step(
     config: Config,
     mesh: Mesh,
@@ -248,18 +255,23 @@ def make_sharded_eval_step(
     sharding: Any = None,
 ):
     """``(encode, eval_batch)`` of the sharded evaluation (module
-    docstring). ``encode(params)`` gathers the full parameters from their
-    shards (``sharding``, a ``StateSharding``; None: already whole) and
-    returns ``(params, corpus_shard)``: this rank's ``[rows, D]`` model
-    shard of the encoded corpus, zero-padded past ``num_items``.
-    ``eval_batch(params, corpus_shard, user_idx, true_item, weight)``
-    takes this rank's data shard of one query batch and returns the
-    weighted metric sums and the weight (``[len(keys) + 1]``, over this
+    docstring), on parameters in their mesh layout (``sharding``, a
+    ``StateSharding``; None: whole on every rank). No rank gathers a
+    table: ``encode(params)`` returns ``(params, corpus_shard)``, this
+    rank's ``[rows, D]`` model shard of the encoded corpus (corpus rows
+    ``[m * rows, (m + 1) * rows)``, zero past ``num_items``), whose item
+    rows (and text rows) are looked up from their owners with
+    ``alltoall_lookup`` in chunks of ``ENCODE_IDS`` ids, the same number
+    of calls on every rank; ``eval_batch(params, corpus_shard, user_idx,
+    true_item, weight)`` takes this rank's data shard of one query batch,
+    looks its user rows up the same way (JAX's GSPMD gather) and returns
+    the weighted metric sums and the weight (``[len(keys) + 1]``, over this
     data shard only: the caller all-reduces them over ``data``), with the
     keys ``eval_keys(config, max_k)``."""
     from twotower_tpu_torch.models import two_tower
     from twotower_tpu_torch.ops.topk import topk_mips_approx_sharded, topk_mips_sharded
-    from twotower_tpu_torch.parallel.sharding import gather_params
+    from twotower_tpu_torch.parallel.a2a import alltoall_lookup
+    from twotower_tpu_torch.parallel.sharding import table_axis
 
     mcfg = config.model
     exact = config.retrieval.eval_exact
@@ -268,24 +280,44 @@ def make_sharded_eval_step(
     hi = min(lo + local_rows, num_items)
     ks = eval_ks(config, max_k)
     dtype = getattr(torch, config.retrieval.eval_corpus_dtype)
+    axis_name = None if sharding is None else table_axis(config.mesh,
+                                                          sparse_mesh=sharding.sparse_mesh)
+    width = 1 + (0 if item_tokens is None else item_tokens.shape[1])
+    chunk = max(1, min(ENCODE_IDS // width, local_rows))
+
+    def lookup(table, ids):
+        if axis_name is None:
+            return table[ids]
+        return alltoall_lookup(table, ids.reshape(-1), mesh.axis(axis_name)).view(
+            *ids.shape, -1)
 
     @torch.no_grad()
     def encode(params):
-        params = gather_params(params, sharding)
         shard = torch.zeros((local_rows, list(mcfg.item_tower_dims)[-1]), dtype=dtype,
                             device=mesh.device)
-        if hi > lo:
-            idx = torch.arange(lo, hi, device=mesh.device)
-            tokens = None if item_tokens is None else item_tokens[idx]
-            shard[:hi - lo] = two_tower.embed_items(params, idx, mcfg,
-                                                    text_tokens=tokens).to(dtype)
+        for start in range(0, local_rows, chunk):
+            # Every rank runs every chunk (its lookups are collectives); rows
+            # past num_items look up item 0 and are dropped.
+            n = min(chunk, local_rows - start)
+            idx = torch.arange(lo + start, lo + start + chunk, device=mesh.device)
+            idx = torch.where(idx < num_items, idx, 0)
+            rows = lookup(params["item_embedding"], idx)
+            if item_tokens is not None:
+                tokens = item_tokens[idx]
+                rows = rows + two_tower.pool_rows(lookup(params["text_embedding"], tokens),
+                                                  tokens)
+            real = max(0, min(n, hi - lo - start))
+            if real:
+                emb = two_tower.apply_item_tower(params, rows[:real], mcfg, train=False)
+                shard[start:start + real] = emb.to(dtype)
         return params, shard
 
     @torch.no_grad()
     def eval_batch(params, corpus_shard, user_idx, true_item, weight):
         from twotower_tpu_torch.evaluation.metrics import rank_of_true_item
 
-        user_emb = two_tower.embed_users(params, user_idx, mcfg, train=False)
+        user_emb = two_tower.apply_user_tower(
+            params, lookup(params["user_embedding"], user_idx), mcfg, train=False)
         if exact:
             _, topk_idx = topk_mips_sharded(user_emb, corpus_shard, max_k, axis=mesh.model,
                                             num_items=num_items)

@@ -10,9 +10,14 @@ The handler core is framework-free and needs no package beyond the index:
 ``RecommendService`` (validation, exclusions, history, hot reload, health),
 ``MicroBatcher`` (coalesces concurrent searches into shared device calls)
 and ``CoalescedRoutes`` (the three POST routes' coalesced handlers). The
-aiohttp front (``create_app``) imports aiohttp only when it is built, so the
-core imports and runs without it. The FastAPI front is not ported yet
-(ROADMAP.md, Queue 1: serving).
+aiohttp front (``create_app``) and the FastAPI front
+(``create_fastapi_app``) import their framework only when they are built,
+so the core imports and runs without either.
+
+``--shard-corpus`` serves a ``RetrievalIndex`` sharded over every visible
+card (over the CPU with ``--device cpu``) from this one process, as the JAX
+service shards over ``jax.devices()``: the service, its micro-batcher and
+its hot reload stay single-process.
 """
 
 from __future__ import annotations
@@ -33,9 +38,6 @@ from twotower_tpu_torch.config import Config, load_config_for_checkpoint, parse_
 from twotower_tpu_torch.logging_utils import get_logger, setup_logging
 
 logger = get_logger(__name__)
-
-_SHARDED_SERVING = "ROADMAP.md, Queue 1: Sharded serving and the scaling tools"
-
 
 class ServingError(ValueError):
     """Client error (HTTP 400/404)."""
@@ -939,6 +941,68 @@ def create_app(
     return app
 
 
+def create_fastapi_app(service: RecommendService, *, admin_token: str | None = None):
+    """The FastAPI front over the same service (JAX ``create_fastapi_app``):
+    the routes of the aiohttp front, each request run by the service
+    directly (no coalescing). Imports ``fastapi`` only here."""
+    try:
+        from fastapi import FastAPI, HTTPException, Request, Response
+    except ImportError as exc:
+        raise ImportError(
+            "create_fastapi_app needs fastapi, which is not installed; the aiohttp "
+            "front (create_app) and the framework-free service run without it"
+        ) from exc
+
+    app = FastAPI(title="twotower-tpu serving (PyTorch port)")
+
+    def health(response: Response):
+        body = service.health()
+        if body["status"] != "ok":  # readiness: pull the pod while reloading
+            response.status_code = 503
+        return body
+
+    @app.get("/livez")
+    def livez():
+        return {"status": "alive"}  # liveness: 200 even while /health is 503
+
+    def route(handler):
+        def run(payload: dict):
+            try:
+                return handler(payload)
+            except ServingError as e:
+                raise HTTPException(status_code=e.status, detail=str(e)) from e
+
+        return run
+
+    app.post("/recommend")(route(service.recommend))
+    app.post("/recommend_by_history")(route(service.recommend_by_history))
+    app.post("/similar_items")(route(service.similar_items))
+
+    def admin_reload(request: Request, payload: dict | None = None):
+        if admin_token is not None and not _admin_authorized(request.headers, admin_token):
+            raise HTTPException(status_code=401, detail="unauthorized")
+        step = (payload or {}).get("step")
+        release_first = bool((payload or {}).get("release_first", False))
+        try:
+            # reload() validates the step and serializes concurrent reloads.
+            return service.reload(step, release_first=release_first)
+        except ServingError as e:
+            raise HTTPException(status_code=e.status, detail=str(e)) from e
+        except FileNotFoundError as e:
+            raise HTTPException(status_code=404, detail=str(e)) from e
+        except Exception as e:  # keep the JSON error contract on 500s
+            logger.exception("hot reload failed")
+            raise HTTPException(status_code=500, detail=f"reload failed: {e}") from e
+
+    # This module's annotations are strings (``from __future__``); FastAPI
+    # resolves them in the module's globals, where these classes are not.
+    health.__annotations__["response"] = Response
+    admin_reload.__annotations__["request"] = Request
+    app.get("/health")(health)
+    app.post("/admin/reload")(admin_reload)
+    return app
+
+
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
@@ -960,7 +1024,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=None)
     p.add_argument(
         "--shard-corpus", action="store_true",
-        help="row-shard the item corpus over all local devices (not ported yet)",
+        help="row-shard the item corpus and tables over every visible card (over the "
+        "CPU with --device cpu); the shards' candidates merge exactly per query",
     )
     p.add_argument(
         "--admin-token", type=str,
@@ -973,14 +1038,27 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def build_service(
-    config: Config, checkpoint_dir: str, *, device=None
+    config: Config, checkpoint_dir: str, *, device=None, shard_corpus: bool = False,
 ) -> RecommendService:
     """The service over ``checkpoint_dir``'s best-metric step, reloadable
-    from the same directory."""
+    from the same directory. ``shard_corpus``: the index sharded over every
+    visible card, or over the CPU when ``device`` is the CPU (``device`` is
+    resolved first, so a GPU machine never shards over its host unasked)."""
+    import torch
+
     from twotower_tpu_torch.serving.index import RetrievalIndex
+    from twotower_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    mesh = None
+    if shard_corpus:
+        mesh = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                if dev.type == "cuda" else [dev])
+        dev = None
 
     def factory(step: int | None = None) -> RetrievalIndex:
-        return RetrievalIndex.from_checkpoint(config, checkpoint_dir, step=step, device=device)
+        return RetrievalIndex.from_checkpoint(config, checkpoint_dir, step=step, device=dev,
+                                              mesh=mesh)
 
     index = factory()
     return RecommendService(
@@ -1000,8 +1078,6 @@ def main(argv: list[str] | None = None) -> int:
     setup_logging()
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.shard_corpus:
-        parser.error(f"--shard-corpus is not ported yet ({_SHARDED_SERVING})")
     try:
         from aiohttp import web
     except ImportError:
@@ -1013,7 +1089,8 @@ def main(argv: list[str] | None = None) -> int:
     config = load_config_for_checkpoint(
         args.checkpoint_dir, args.config, parse_cli_overrides(args.override)
     )
-    service = build_service(config, args.checkpoint_dir, device=args.device)
+    service = build_service(config, args.checkpoint_dir, device=args.device,
+                            shard_corpus=args.shard_corpus)
     window = config.serving.coalesce_window_ms
     app = create_app(
         service, coalesce=window > 0, window_ms=window, admin_token=args.admin_token,

@@ -1,7 +1,12 @@
 """Training of the PyTorch port: state, optimizers, the sparse and dense
 steps, Trainer."""
 
-from twotower_tpu_torch.training.loop import Trainer, TrainResult, make_train_step
+from twotower_tpu_torch.training.loop import (
+    EarlyStopping,
+    Trainer,
+    TrainResult,
+    make_train_step,
+)
 from twotower_tpu_torch.training.state import (
     Adagrad,
     Adam,
@@ -14,6 +19,7 @@ from twotower_tpu_torch.training.state import (
 __all__ = [
     "Adagrad",
     "Adam",
+    "EarlyStopping",
     "Sgd",
     "TrainResult",
     "TrainState",

@@ -27,7 +27,8 @@ coordinator may also be an init URL such as ``file:///shared/path``);
 with neither, a world of one process. Every rank reads the same data and
 feeds its data shard's rows of each batch (``--shard-input``: a streamed
 rank reads only its own row groups); rank 0 writes the artifacts, and
-the checkpoint holds the single-device layout.
+each rank writes its own rows of each checkpoint, which restores on one
+device or at any layout (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations

@@ -4,11 +4,9 @@ Counterpart of ``twotower_tpu/utils/checkpoint.py`` (which writes Orbax
 checkpoints). The layout and the rules are the same: ``directory/
 step_XXXXXXXXXX/`` holds the state and a ``meta.json`` sidecar (step,
 metrics, ``format``, extra keys such as the resume ``epoch``), and
-``meta.json`` is written LAST, so its presence marks a complete save. The
-state is stored with ``torch.save`` as nested dicts and lists of tensors and
-ints (``state.pt``) and loaded with ``weights_only=True``: no pickled objects.
+``meta.json`` is written LAST, so its presence marks a complete save.
 
-The state layout is the bridge's (``bridge.py``) with tensors in place of
+The state is the bridge's layout (``bridge.py``) with tensors in place of
 numpy arrays::
 
     {"step": int, "params": {...}, "opt_state": {"count": int, <slots>},
@@ -16,16 +14,30 @@ numpy arrays::
 
 ``<slots>`` are the optimizer's (``training.state.opt_state_to_tree``):
 ``mu`` and ``nu`` for adam and adamw, ``sum_of_squares`` for adagrad, none
-for sgd. An adam checkpoint therefore has the layout it had before the
-other optimizers existed, and restores as it did.
+for sgd.
 
-On a mesh (a state with ``sharding``, ``parallel/sharding.py``) saving is
-collective: every rank calls ``save``, the shards are gathered, and rank 0
-writes the single-device layout, so ``evaluate-model`` and ``serve-model``
-read a mesh checkpoint unchanged. ``restore`` into a sharded template reads
-that layout and shards it to the mesh at hand (any layout, any world
-size). Async saving is off when the world holds more than one process, as
-in the JAX package.
+Format ``twotower_tpu_torch.checkpoint.v2``: ``manifest.json`` holds the
+tree's structure (tensors replaced by their ``/``-joined paths, ints and
+None as they are) and, for each tensor, its global shape, dtype, sharded
+axis and the files that hold its rows: ``rank_XXXXX.pt``, one
+``torch.save`` file of ``{path: tensor}`` for each rank that wrote, loaded
+with ``weights_only=True`` (no pickled objects). On a mesh (a state with
+``sharding``, ``parallel/sharding.py``) saving is collective and each rank
+writes only what it owns: a table leaf's rows by the lowest rank holding
+them (every rank on the sparse path's combined axis; the ``data``-index-0
+peer of each model shard on the dense path), the replicated leaves by rank
+0, which writes the manifest and ``meta.json`` after a barrier. Async
+saving is off when the world holds more than one process, as in the JAX
+package. One device writes the same layout with one file.
+
+``restore`` reads, for each leaf of the template, only the rows the
+template holds (this rank's shard at the template's layout, whatever the
+saved one; every row for a template without sharding), through
+``torch.load(..., mmap=True)``, and copies them into the template's
+tensors: no rank loads a file whole or holds another rank's rows.
+``evaluate-model`` and ``serve-model`` therefore read a mesh checkpoint on
+one device. A ``v1`` step (one ``state.pt`` of the whole tree) restores the
+same way.
 """
 
 from __future__ import annotations
@@ -35,17 +47,14 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
 import torch
 
 from twotower_tpu_torch.logging_utils import get_logger
-from twotower_tpu_torch.training.state import (
-    TrainState,
-    opt_state_from_tree,
-    opt_state_to_tree,
-    tree_map,
-)
+
+if TYPE_CHECKING:
+    from twotower_tpu_torch.training.state import TrainState
 
 logger = get_logger(__name__)
 
@@ -59,12 +68,17 @@ def _world() -> tuple[int, int]:
     return 0, 1
 
 
-FORMAT = "twotower_tpu_torch.checkpoint.v1"
+FORMAT = "twotower_tpu_torch.checkpoint.v2"
+MANIFEST = "manifest.json"
+LEGACY_STATE = "state.pt"  # a v1 step: the whole tree in one file
 
 
 def state_to_tree(state: TrainState) -> dict:
     """``TrainState`` -> the nested dict that is saved (tensors shared, not
     copied)."""
+    # training.state imports utils (the package imports this module): late.
+    from twotower_tpu_torch.training.state import opt_state_to_tree
+
     return {
         "step": int(state.step),
         "params": state.params,
@@ -74,6 +88,8 @@ def state_to_tree(state: TrainState) -> dict:
 
 
 def tree_to_state(tree: dict) -> TrainState:
+    from twotower_tpu_torch.training.state import TrainState, opt_state_from_tree
+
     return TrainState(
         step=int(tree["step"]),
         params=tree["params"],
@@ -82,27 +98,197 @@ def tree_to_state(tree: dict) -> TrainState:
     )
 
 
-def _check_like(loaded: Any, template: Any, path: str = "state") -> None:
-    """Raise unless ``loaded`` has the template's structure and shapes."""
+def _shard_file(rank: int) -> str:
+    return f"rank_{rank:05d}.pt"
+
+
+def _leaves(tree: Any, path: tuple = ()):
+    """``(path, leaf)`` of every leaf of nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, (*path, k))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, (*path, i))
+    else:
+        yield path, tree
+
+
+def _key(path: tuple) -> str:
+    return "/".join(map(str, path))
+
+
+def _skeleton(tree: Any, path: tuple = ()) -> Any:
+    """The tree for ``manifest.json``: each tensor replaced by
+    ``{"tensor": path}``."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v, (*path, k)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_skeleton(v, (*path, i)) for i, v in enumerate(tree)]
+    if isinstance(tree, torch.Tensor):
+        return {"tensor": _key(path)}
+    return tree
+
+
+def _is_tensor_ref(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == {"tensor"}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor that owns exactly its elements (``torch.save`` writes a
+    view's whole storage)."""
+    t = t.detach()
+    if t.device.type != "cpu":
+        return t.cpu()
+    if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+        return t.clone()
+    return t
+
+
+def _axis_index(mesh, axis: str, rank: int) -> int:
+    """Rank ``rank``'s index on a table axis (ranks are data-major)."""
+    return {"combined": rank, "model": rank % mesh.num_model}[axis]
+
+
+def _layout(tree: dict, sharding) -> tuple[dict, dict]:
+    """Where each tensor leaf goes: ``({path: manifest entry}, {rank: [paths
+    it writes]})``. Without ``sharding`` rank 0 writes every leaf whole; on
+    a mesh each shard of a table leaf is written by the lowest rank that
+    holds it (its rows are ``[index * n, (index + 1) * n)``) and the
+    replicated leaves by rank 0."""
+    from twotower_tpu_torch.parallel.sharding import leaf_axes
+
+    axes = (None if sharding is None else
+            leaf_axes(tree, sharding.mesh.config, sparse_mesh=sharding.sparse_mesh))
+    entries, writes = {}, {}
+    for path, leaf in _leaves(tree):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        axis = None
+        if axes is not None:
+            node = axes
+            for k in path:
+                node = node[k]
+            axis = node
+        key = _key(path)
+        shape = list(leaf.shape)
+        if axis is None:
+            parts = [[_shard_file(0), 0, shape[0] if shape else 0]]
+            writes.setdefault(0, []).append(key)
+        else:
+            mesh = sharding.mesh
+            n, size = shape[0], mesh.axis(axis).size
+            parts = []
+            for i in range(size):
+                writer = min(r for r in range(mesh.world) if _axis_index(mesh, axis, r) == i)
+                parts.append([_shard_file(writer), i * n, (i + 1) * n])
+                writes.setdefault(writer, []).append(key)
+            shape[0] = n * size
+        entries[key] = {"shape": shape, "dtype": _dtype_name(leaf.dtype),
+                        "axis": axis, "parts": parts}
+    return entries, writes
+
+
+class _Source:
+    """The saved tensors of one step, read lazily: ``rows(key, lo, hi)``
+    gives rows ``[lo, hi)`` of a leaf's global tensor from the files that
+    hold them, each file opened once with ``mmap=True``."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self._files: dict[str, dict] = {}
+        if (path / LEGACY_STATE).exists():  # v1: the whole tree, one file
+            tree = self._open(LEGACY_STATE)
+            self.skeleton = _skeleton(tree)
+            self.entries = {
+                _key(p): {"shape": list(t.shape), "dtype": _dtype_name(t.dtype),
+                          "parts": [[LEGACY_STATE, 0, t.shape[0] if t.dim() else 0]]}
+                for p, t in _leaves(tree) if isinstance(t, torch.Tensor)}
+            self._flat = {LEGACY_STATE: {_key(p): t for p, t in _leaves(tree)
+                                         if isinstance(t, torch.Tensor)}}
+        else:
+            manifest = json.loads((path / MANIFEST).read_text())
+            self.skeleton, self.entries = manifest["tree"], manifest["leaves"]
+            self._flat = {}
+
+    def _open(self, name: str):
+        if name not in self._files:
+            self._files[name] = torch.load(self.path / name, map_location="cpu",
+                                           weights_only=True, mmap=True)
+        return self._files[name]
+
+    def tensor(self, name: str, key: str) -> torch.Tensor:
+        if name not in self._flat:
+            self._flat[name] = self._open(name)
+        return self._flat[name][key]
+
+    def copy_rows(self, key: str, out: torch.Tensor, lo: int) -> None:
+        """``out[:] = `` rows ``[lo, lo + len(out))`` of the saved leaf (all of
+        it for a 0-d leaf)."""
+        if out.dim() == 0:
+            out.copy_(self.tensor(self.entries[key]["parts"][0][0], key))
+            return
+        hi = lo + out.shape[0]
+        for name, a, b in self.entries[key]["parts"]:
+            x, y = max(a, lo), min(b, hi)
+            if x < y:
+                out[x - lo:y - lo].copy_(self.tensor(name, key)[x - a:y - a])
+
+
+def _plan(saved: Any, template: Any, axes: Any, source: _Source, sharding,
+          path: str = "state") -> list:
+    """Check the saved tree against the template (structure, each leaf's
+    dtype, and its global shape against the template's shard times its
+    axis size) and return the copies ``[(key, template tensor, first
+    global row)]``."""
     if isinstance(template, dict):
-        if not isinstance(loaded, dict) or sorted(loaded) != sorted(template):
+        if not isinstance(saved, dict) or _is_tensor_ref(saved) or \
+                sorted(saved) != sorted(template):
             raise ValueError(f"checkpoint {path}: keys differ from the template")
-        for k in template:
-            _check_like(loaded[k], template[k], f"{path}/{k}")
-    elif isinstance(template, list):
-        if not isinstance(loaded, list) or len(loaded) != len(template):
+        return [c for k in template for c in _plan(saved[k], template[k], axes[k], source,
+                                                   sharding, f"{path}/{k}")]
+    if isinstance(template, list):
+        if not isinstance(saved, list) or len(saved) != len(template):
             raise ValueError(f"checkpoint {path}: length differs from the template")
-        for i, (a, b) in enumerate(zip(loaded, template)):
-            _check_like(a, b, f"{path}/{i}")
-    elif template is None:
-        if loaded is not None:
+        return [c for i, (a, b) in enumerate(zip(saved, template))
+                for c in _plan(a, b, axes[i], source, sharding, f"{path}/{i}")]
+    if template is None:
+        if saved is not None:
             raise ValueError(f"checkpoint {path}: holds a value the template has not")
-    elif isinstance(template, torch.Tensor):
-        if not isinstance(loaded, torch.Tensor) or loaded.shape != template.shape:
-            raise ValueError(
-                f"checkpoint {path}: shape {getattr(loaded, 'shape', None)} != "
-                f"template {tuple(template.shape)}"
-            )
+        return []
+    if not isinstance(template, torch.Tensor):
+        return []
+    if not _is_tensor_ref(saved):
+        raise ValueError(f"checkpoint {path}: holds no tensor where the template has one")
+    key = saved["tensor"]
+    shape, lo = list(template.shape), 0
+    if axes is not None:
+        ax = sharding.mesh.axis(axes)
+        lo, shape[0] = ax.index * shape[0], shape[0] * ax.size
+    entry = source.entries[key]
+    if entry["shape"] != shape:
+        raise ValueError(f"checkpoint {path}: shape {tuple(entry['shape'])} != "
+                         f"template {tuple(shape)}")
+    if entry["dtype"] != _dtype_name(template.dtype):
+        raise ValueError(f"checkpoint {path}: dtype {entry['dtype']} != template "
+                         f"{_dtype_name(template.dtype)}")
+    return [(key, template, lo)]
+
+
+def _rebuild(saved: Any, template: Any) -> Any:
+    """The restored tree: the template's tensors (now holding the saved
+    values) and the saved ints."""
+    if isinstance(template, dict):
+        return {k: _rebuild(saved[k], template[k]) for k in template}
+    if isinstance(template, list):
+        return [_rebuild(a, b) for a, b in zip(saved, template)]
+    if isinstance(template, torch.Tensor):
+        return template
+    return saved
 
 
 class CheckpointManager:
@@ -285,17 +471,7 @@ class CheckpointManager:
         if self._worker_err is not None:
             self.flush()  # re-raise a prior async failure
         if state.sharding is not None:
-            from twotower_tpu_torch.parallel.sharding import gather_state
-
-            state = gather_state(state)  # collective: every rank is here
-            rank, world = _world()
-            if world > 1:
-                if rank == 0:
-                    self._save_now(step, state_to_tree(state), metrics=metrics, extra=extra)
-                import torch.distributed as dist
-
-                dist.barrier()  # the save is on disk before any rank goes on
-                return path
+            return self._save_sharded(step, state, metrics=metrics, extra=extra)
         if not self.async_save:
             return self._save_now(step, state_to_tree(state), metrics=metrics, extra=extra)
         self._ensure_worker()
@@ -316,6 +492,8 @@ class CheckpointManager:
         self._last_accept = now
         # The snapshot must exist before save returns: the next train step
         # updates the live tensors in place.
+        from twotower_tpu_torch.training.state import tree_map
+
         snapshot = tree_map(
             lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t,
             state_to_tree(state),
@@ -342,22 +520,60 @@ class CheckpointManager:
         metrics: dict[str, float] | None = None,
         extra: dict[str, Any] | None = None,
     ) -> Path:
+        """Write a whole tree (one device) as one file."""
         path = self._step_dir(step)
         if (path / "meta.json").exists():
             logger.info("checkpoint step %d already exists, skipping", step)
             return path
+        self._fresh_dir(path)
+        entries, _ = _layout(tree, None)
+        torch.save({k: _host(t) for k, t in ((_key(p), t) for p, t in _leaves(tree))
+                    if k in entries}, path / _shard_file(0))
+        return self._finish(step, tree, entries, metrics, extra)
+
+    def _save_sharded(self, step: int, state: TrainState, *, metrics, extra) -> Path:
+        """The collective save of a mesh state: each rank writes the leaves
+        (and table row shards) it owns, then rank 0 writes the manifest and
+        ``meta.json`` (module docstring). Every rank calls it."""
+        import torch.distributed as dist
+
+        path = self._step_dir(step)
+        rank = state.sharding.mesh.rank
+        tree = state_to_tree(state)
+        if (path / "meta.json").exists():  # every rank sees the same directory
+            logger.info("checkpoint step %d already exists, skipping", step)
+            return path
+        if rank == 0:
+            self._fresh_dir(path)
+        dist.barrier()  # the directory exists, empty
+        entries, writes = _layout(tree, state.sharding)
+        mine = set(writes.get(rank, ()))
+        if mine:
+            torch.save({k: _host(t) for k, t in ((_key(p), t) for p, t in _leaves(tree))
+                        if k in mine}, path / _shard_file(rank))
+        dist.barrier()  # every shard is on disk
+        if rank == 0:
+            self._finish(step, tree, entries, metrics, extra)
+        dist.barrier()  # the step is complete before any rank goes on
+        return path
+
+    def _fresh_dir(self, path: Path) -> None:
         if path.exists():
             logger.warning("removing incomplete checkpoint at %s", path)
             shutil.rmtree(path, ignore_errors=True)
         path.mkdir(parents=True)
-        torch.save(tree, path / "state.pt")
+
+    def _finish(self, step: int, tree: dict, entries: dict, metrics, extra) -> Path:
+        """The manifest, then ``meta.json`` (its presence marks the save
+        complete), then pruning."""
+        path = self._step_dir(step)
+        (path / MANIFEST).write_text(json.dumps({"tree": _skeleton(tree), "leaves": entries}))
         meta = {
             "step": step,
             "metrics": metrics or {},
             "format": FORMAT,
             **(extra or {}),
         }
-        # meta.json is written LAST: its presence marks the save complete.
         (path / "meta.json").write_text(json.dumps(meta, indent=2))
         self._prune()
         logger.info("saved checkpoint at step %d -> %s", step, path)
@@ -366,9 +582,11 @@ class CheckpointManager:
     def restore(
         self, state_template: TrainState, step: int | None = None
     ) -> tuple[TrainState, dict]:
-        """Restore onto the template's device, checking its structure and
-        shapes; a sharded template gets this rank's shard of the saved
-        state. Returns (state, metadata dict)."""
+        """Restore into the template (its tensors receive the saved values,
+        on their device), checking its structure, dtypes and shapes; a
+        sharded template gets this rank's shard of the saved state, read
+        row range by row range from the files that hold it. Returns (state,
+        metadata dict)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -376,17 +594,22 @@ class CheckpointManager:
         path = self._step_dir(step)
         template = state_to_tree(state_template)
         sh = state_template.sharding
-        device = "cpu" if sh is not None else state_template.params["user_embedding"].device
-        tree = torch.load(path / "state.pt", map_location=device, weights_only=True)
-        if sh is not None:
-            from twotower_tpu_torch.parallel.sharding import shard_tree
+        source = _Source(path)
+        if sh is None:
+            from twotower_tpu_torch.training.state import tree_map
 
-            tree = shard_tree(tree, sh.mesh, sh.mesh.config, sparse_mesh=sh.sparse_mesh)
-        _check_like(tree, template)
+            axes = tree_map(lambda _: None, template)
+        else:
+            from twotower_tpu_torch.parallel.sharding import leaf_axes
+
+            axes = leaf_axes(template, sh.mesh.config, sparse_mesh=sh.sparse_mesh)
+        with torch.no_grad():
+            for key, out, lo in _plan(source.skeleton, template, axes, source, sh):
+                source.copy_rows(key, out, lo)
         meta_path = path / "meta.json"
         meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
         logger.info("restored checkpoint step %d from %s", step, path)
-        state = tree_to_state(tree)
+        state = tree_to_state(_rebuild(source.skeleton, template))
         state.sharding = sh
         return state, meta
 
