@@ -18,8 +18,10 @@
    at D=30, rows not 16-byte aligned, so 4-byte copies; B=512 at D=256,
    deeper than one tile, unit-norm rows; B=4096 at D=64, unit-norm rows, the
    depth phase 7c trains at; a 2048-row block of B=4096 at offset 2048,
-   the 2x1 mesh's block of phase 10c). Tolerances: forward outputs rtol 1e-4
-   / atol 1e-4; dU and dV rtol 5e-3 / atol 1e-5. Two launches of the
+   the 2x1 mesh's block of phase 10c; B=8192 at D=128, unit-norm rows,
+   config 3's batch of phase 7g, where the JAX package runs its XLA loss).
+   Tolerances: forward outputs rtol 1e-4 / atol 1e-4; dU and dV rtol 5e-3
+   / atol 1e-5. Two launches of the
    forward, two of dU and two of dV must give the same bits.
 4. Small-input check of the whole step: three steps at embedding 32,
    towers [64,32], batch 256, float32 compute, dropout 0, from one state,
@@ -165,6 +167,39 @@
    explore) and again (the resume skips prepare), then train-model
    --prepared-dir --exec device-loop for one epoch: launch counts set to 0
    just before and read just after equal its steps.
+7g. The config-3 lifecycle at full width: configs/lifecycle_50m_1chip.yaml
+   as it ships (embedding 128, towers [512,256,128], bf16 compute, batch
+   8192, lazy-Adam tables, log q, segment_steps 64, async checkpoints with
+   a 900 s accept interval, approx bfloat16 validation) on prepare-data
+   artifacts written directly (write_artifact, shared with phase 10b) with
+   the vocab of the JAX package's 50M-row lifecycle artifact, 2,499,952
+   users x 1,145,145 items (a 5.3 GiB train state): 8M and 1M rows of
+   config 3's corpus generator (data/synthetic_scale.py, seed 42, its
+   clusters drawn on the card) over every 6th id, config 3's density of
+   rows a user and an item, their ids encoded directly. (a)
+   train-model --config ... --exec auto --val-rows 80000 --override
+   training.epochs=2 on the 8M artifact: it must choose, log and report
+   the device loop; launch counts set to 0 just before and read just after
+   equal its 1,564 steps; every epoch validated by topk_mips_approx over
+   the bfloat16 corpus, no other search; epoch 2 improves, its save is
+   skipped by the accept interval (a spy on CheckpointManager.save waits
+   for the save in flight first, so the interval is the one rule left to
+   skip it) and the end-of-fit backstop persists the final state, which
+   best_step() names; prints the peak device memory of each epoch with its
+   validation and of each save. (b) evaluate-model with
+   retrieval.eval_exact=true retrieval.eval_corpus_dtype=float32 --rows
+   80000 restores best_step()'s step and searches topk_mips_twopass over
+   the float32 corpus; on the 80,000 validation rows train-model scored,
+   evaluate-model's approx metrics equal the last epoch's within one rank
+   flip, printed beside the exact ones. (c) train-model --exec stream for
+   one epoch on the 1M artifact: the stream rung, 97 steps in segments of
+   64 and 33, segment_time_p50_ms in the epoch record, launches = steps.
+   (d) serve-model's service (build_service) over (a)'s checkpoint in
+   float32 exact and bfloat16: /recommend for 16 test users (4 alone, then
+   one request of 16), k=100: the exact service equal to the exact
+   evaluator's topk_mips_twopass (scores within the responses' 6
+   decimals, ids equal outside tied ranks); bfloat16's recall@100 against
+   it. Prints one {"lifecycle": ...} JSON line.
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -217,10 +252,10 @@
    collectives captured as a CUDA graph (launches = steps by the counters
    and one of each kernel a replay by a profiler count), replay ms; then
    train-model --mesh --prepared-dir at the full model width on an
-   artifact written directly with the main path's 1M users x 500k items
-   as its vocab and 102,400 interactions (20 steps; a latent-factor draw
-   over every 50th user and item), host loop and --device-loop (launches
-   = steps), each followed by evaluate-model --mesh equal to
+   artifact written directly (write_artifact) with the main path's 1M
+   users x 500k items as its vocab and 102,400 interactions (20 steps; a
+   latent-factor draw over every 50th user and item), host loop and
+   --device-loop (launches = steps), each followed by evaluate-model --mesh equal to
    evaluate-model within 1e-6 and test recall@10 at least 10x random. (c) Two spawned ranks
    sharing the card over gloo, layouts 2x1 and 1x2, at the main path's
    width at float32 compute: every tensor on cuda:0, the device loop's
@@ -278,13 +313,16 @@
    3.35 TB/s) and the lesser of two operation times at float32 accuracy:
    float32 FMA at 67 TFLOP/s, or three TF32 tensor-core passes at 495
    TFLOP/s (3x the flops);
-   "bound_route" names the one taken and "share_of_bound" is bound / ms.
+   "bound_route" names the one taken and "share_of_bound" is bound / ms
+   ("share_of_bound_batched" bound / ms_batched). "at_b8192" holds the same
+   timings at config 3's batch, B=8192 (phase 7g).
    Each row also carries its launches in phase 7's train-model run, in
    phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
    serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
-   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs, and
-   in phase 10's mesh runs (10b's Trainer, device-loop epoch and both
-   train-model --mesh runs; rank 1's in 10c's 2x1 and 1x2).
+   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs, in
+   phase 7g's --exec auto and --exec stream runs, and in phase 10's mesh
+   runs (10b's Trainer, device-loop epoch and both train-model --mesh runs;
+   rank 1's in 10c's 2x1 and 1x2).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -309,6 +347,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 MAIN_B, MAIN_D = 4096, 128
+LIFECYCLE_B = 8192  # configs/lifecycle_50m_1chip.yaml's batch (phase 7g)
 NUM_USERS, NUM_ITEMS = 1_000_000, 500_000
 WARMUP_STEPS, MEASURE_STEPS = 5, 20
 TEMP = 0.1
@@ -347,6 +386,8 @@ CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (MAIN_B, 64, MAIN_B, 0, True),
     # The 2x1 mesh's block on rank 1 (phase 10c): 2048 rows of 4096 columns.
     (MAIN_B, MAIN_D, MAIN_B // 2, MAIN_B // 2, True),
+    # Config 3's batch (phase 7g), where the JAX package runs its XLA loss.
+    (LIFECYCLE_B, MAIN_D, LIFECYCLE_B, 0, True),
 ]
 
 
@@ -501,10 +542,11 @@ def build_report(paths: dict[str, Path]) -> dict[str, dict]:
 
 def check_kernels(shape_cases):
     """Each kernel against its plain version, and each twice (the same bits
-    both times); returns max abs errors at the first (main-path) case."""
+    both times); returns the max abs errors of each case by its batch, dim,
+    rows and offset."""
     from twotower_tpu_torch.ops import kernels
 
-    main_err = {}
+    all_errs = {}
     for batch, dim, rows, off, unit in shape_cases:
         u, v, ids, cols, g = loss_inputs(batch, dim, rows + off, seed=batch + dim, unit=unit)
         u = u[off:].contiguous()
@@ -539,9 +581,8 @@ def check_kernels(shape_cases):
         }
         log(f"  B={batch} D={dim} rows={rows} offset={off}: max abs err {errs}; "
             "forward, dU, dV bitwise equal over two launches")
-        if not main_err:
-            main_err = errs
-    return main_err
+        all_errs[batch, dim, rows, off] = errs
+    return all_errs
 
 
 def host_batches(n, batch, num_users, num_items, user_dead, item_dead, seed):
@@ -1805,6 +1846,371 @@ def run_orchestrate_slice(card: str) -> dict:
     return {"launches": row_launches(launches)}
 
 
+# Phase 7g: BASELINE config 3 as configs/lifecycle_50m_1chip.yaml ships it
+# (embedding 128, towers [512,256,128], bf16 compute, batch 8192, lazy-Adam
+# tables, log q, segment_steps 64, async checkpoints 900 s apart, approx
+# bfloat16 validation) over the vocab of the JAX package's 50M-row lifecycle
+# artifact (benchmarks/results/lifecycle_config3_r5.json: 2,499,952 users x
+# 1,145,145 items after 5-core), cut in depth to an 8M-row draw of config 3's
+# own corpus generator at its density and two epochs; the stream rung on a
+# 1M-row draw over the same vocab (97 steps: a segment of 64 and a short one
+# of 33). Per-epoch validation and evaluate-model score LIFECYCLE_HELD
+# strided rows (benchmarks/lifecycle_config3.py's --val-rows is a tenth of
+# its validation split; so is this).
+LIFECYCLE_CONFIG = ROOT / "configs" / "lifecycle_50m_1chip.yaml"
+LIFECYCLE_USERS, LIFECYCLE_ITEMS = 2_499_952, 1_145_145
+LIFECYCLE_ROWS, LIFECYCLE_STREAM_ROWS = 8_000_000, 1_000_000
+LIFECYCLE_HELD = 80_000
+LIFECYCLE_SERVE_USERS = 16
+# The 8M rows spread over every 6th id: 19 rows a user and 42 an item, config
+# 3's density (20 and 43). Over the whole vocab (3 a user) the second epoch's
+# validation fell below the first's on the card; at this density it rises.
+LIFECYCLE_SPREAD = 6
+EXACT_EVAL = ["retrieval.eval_exact=true", "retrieval.eval_corpus_dtype=float32"]
+
+
+def id_numbers(ids) -> np.ndarray:
+    """The numbers of the synthetic generators' ids ("U0001234" -> 1234)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    return pc.cast(pc.utf8_slice_codeunits(pa.array(ids), 1), pa.int64()).to_numpy()
+
+
+def write_artifact(out: Path, num_users: int, num_items: int, cols: dict) -> Path:
+    """A prepare-data artifact written directly (phases 7g and 10b): the
+    interactions ``cols`` (user_idx, item_idx, rating, timestamp, in time
+    order) over a vocab of ``num_users`` x ``num_items`` (ids zero-padded, so
+    their sorted order is their index), in prepare-data's layout:
+    combined_interactions.parquet and vocab/, without the host
+    preprocessing of a draw that touches every row."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from twotower_tpu_torch.data.vocab import VocabPair, Vocabulary
+
+    out.mkdir(parents=True)
+    pq.write_table(pa.table(cols), out / "combined_interactions.parquet")
+
+    def vocab(prefix: str, n: int, idx: np.ndarray) -> Vocabulary:
+        ids = np.char.add(prefix, np.char.zfill(np.arange(n).astype(str), 7))
+        return Vocabulary(ids=ids.astype(object),
+                          counts=np.bincount(idx, minlength=n).astype(np.int64))
+
+    VocabPair(users=vocab("u", num_users, cols["user_idx"]),
+              items=vocab("i", num_items, cols["item_idx"])).save(out / "vocab")
+    return out
+
+
+def lifecycle_artifact(out: Path, rows: int) -> Path:
+    """Config 3's corpus generator (data/synthetic_scale.py, seed 42, its
+    clusters drawn on the card) at ``rows`` interactions over every
+    LIFECYCLE_SPREAD-th id of the LIFECYCLE_USERS x LIFECYCLE_ITEMS vocab,
+    as a prepare-data artifact."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from twotower_tpu_torch.data.synthetic_scale import generate_parquet
+
+    raw = out.parent / f"{out.name}_raw"
+    generate_parquet(raw, num_interactions=rows, num_users=LIFECYCLE_USERS // LIFECYCLE_SPREAD,
+                     num_items=LIFECYCLE_ITEMS // LIFECYCLE_SPREAD, use_device=True,
+                     device="cuda")
+    table = pa.concat_tables([pq.read_table(f) for f in sorted(raw.glob("*.parquet"))])
+    return write_artifact(out, LIFECYCLE_USERS, LIFECYCLE_ITEMS, {
+        "user_idx": (id_numbers(table["user_id"]) * LIFECYCLE_SPREAD).astype(np.int32),
+        "item_idx": (id_numbers(table["parent_asin"]) * LIFECYCLE_SPREAD).astype(np.int32),
+        "rating": table["rating"].to_numpy(), "timestamp": table["timestamp"].to_numpy()})
+
+
+@contextlib.contextmanager
+def saves_watched(into: list):
+    """Wraps CheckpointManager.save. Before a save that may be skipped it
+    waits for the save in flight to land, so that the accept interval is the
+    one rule left to skip it; it records each call's step, its force flag,
+    the seconds it waited, the peak device memory since the last save (the
+    epoch and its validation) and the peak over the save (its snapshot)."""
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+
+    orig = CheckpointManager.save
+
+    def spy(self, step, state, **kwargs):
+        t0 = time.perf_counter()
+        if not kwargs.get("force"):
+            self.flush()
+        waited = time.perf_counter() - t0
+        epoch_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig(self, step, state, **kwargs)
+        into.append({"step": step, "force": bool(kwargs.get("force")),
+                     "waited_s": round(waited, 2),
+                     "epoch_peak_gib": round(epoch_peak / 2**30, 3),
+                     "save_peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)})
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    CheckpointManager.save = spy
+    try:
+        yield
+    finally:
+        CheckpointManager.save = orig
+
+
+@contextlib.contextmanager
+def searches_watched(into: list):
+    """Records (search, corpus dtype, corpus rows) of every search the
+    Evaluator runs inside."""
+    from twotower_tpu_torch.evaluation import evaluator
+
+    names = ("topk_mips_approx", "topk_mips_twopass")
+    origs = {n: getattr(evaluator, n) for n in names}
+
+    def watch(name):
+        def spy(query, corpus, k, **kwargs):
+            into.append((name, str(corpus.dtype), corpus.shape[0]))
+            return origs[name](query, corpus, k, **kwargs)
+        return spy
+
+    for n in names:
+        setattr(evaluator, n, watch(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(evaluator, n, origs[n])
+
+
+@contextlib.contextmanager
+def segments_watched(into: list):
+    """Records the step count of every segment the Trainer's segment runner
+    steps through inside."""
+    from twotower_tpu_torch.training import loop
+
+    orig = loop.make_segment_runner
+
+    def make(step):
+        runner = orig(step)
+
+        def watched(state, batches, rng):
+            into.append(int(batches["user_idx"].shape[0]))
+            return runner(state, batches, rng)
+        return watched
+
+    loop.make_segment_runner = make
+    try:
+        yield
+    finally:
+        loop.make_segment_runner = orig
+
+
+def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: dict) -> dict:
+    """train-model --config LIFECYCLE_CONFIG --exec ``rung`` in process, with
+    the launch counts set to 0 just before and read just after (they must
+    equal its steps), every epoch validated by the approx search over the
+    bfloat16 corpus, and its log, saves, searches and segments recorded in
+    ``into``. Returns its summary."""
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.train import main as train_main
+
+    fresh_dir(ckpt)
+    for key in ("messages", "saves", "searches", "segments"):
+        into[key] = []
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with logged("twotower_tpu_torch", into["messages"]), saves_watched(into["saves"]), \
+            searches_watched(into["searches"]), segments_watched(into["segments"]):
+        summary = run_cli(train_main, [
+            "--device", "cuda", "--config", str(LIFECYCLE_CONFIG), "--prepared-dir",
+            str(prepared), "--checkpoint-dir", str(ckpt), "--exec", rung, "--val-rows",
+            str(LIFECYCLE_HELD), "--writers", "jsonl", "--override",
+            f"training.epochs={epochs}"])
+    into["seconds"] = time.perf_counter() - t
+    into["launches"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    into["records"] = epoch_records(ckpt)
+    into["steps"] = steps = int(into["records"][-1]["step"])
+    if (summary["num_users"], summary["num_items"]) != (LIFECYCLE_USERS, LIFECYCLE_ITEMS):
+        raise RuntimeError(f"lifecycle {rung}: {summary['num_users']} users x "
+                           f"{summary['num_items']} items")
+    if any(v != steps for v in into["launches"].values()):
+        raise RuntimeError(f"lifecycle {rung}: launches {into['launches']} != {steps} steps")
+    losses = [r["loss"] for r in into["records"]]
+    if len(into["records"]) != epochs or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"lifecycle {rung}: epochs {into['records']}")
+    searched = set(into["searches"])
+    if searched != {("topk_mips_approx", "torch.bfloat16", LIFECYCLE_ITEMS)}:
+        raise RuntimeError(f"lifecycle {rung}: validation searched {searched}, not the approx "
+                           "search over the bfloat16 corpus")
+    if not all("val/recall@10" in r for r in into["records"]):
+        raise RuntimeError(f"lifecycle {rung}: an epoch without validation")
+    return summary
+
+
+def run_lifecycle(card: str) -> dict:
+    """Phase 7g (module docstring): config 3 through train-model --exec auto,
+    evaluate-model with the exact overrides, train-model --exec stream and
+    serve-model's service, at the config's full width."""
+    from twotower_tpu_torch.config import load_config_for_checkpoint
+    from twotower_tpu_torch.evaluation import Evaluator
+    from twotower_tpu_torch.evaluation.evaluate import main as eval_main
+    from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops.topk import topk_mips_twopass
+    from twotower_tpu_torch.serving.api import build_service
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    work = fresh_dir(ROOT / "build" / "chip_smoke_lifecycle")
+    t = time.perf_counter()
+    prepared = lifecycle_artifact(work / "prepared", LIFECYCLE_ROWS)
+    streamed = lifecycle_artifact(work / "prepared_stream", LIFECYCLE_STREAM_ROWS)
+    log(f"  artifacts: {LIFECYCLE_ROWS} and {LIFECYCLE_STREAM_ROWS} interactions over "
+        f"{LIFECYCLE_USERS} users x {LIFECYCLE_ITEMS} items, written in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # train-model --exec auto: the device loop, two epochs.
+    ckpt, auto = work / "auto", {}
+    summary = lifecycle_train(ckpt, prepared, "auto", 2, auto)
+    chosen = [m for m in auto["messages"] if m.startswith("execution rung:")]
+    if summary["execution_rung"] != "device_loop" or not chosen or "device_loop" not in chosen[0]:
+        raise RuntimeError(f"lifecycle --exec auto ran {summary['execution_rung']}, logged "
+                           f"{chosen}")
+    records, steps = auto["records"], auto["steps"]
+    first, second = (int(r["step"]) for r in records)
+    skipped = [m for m in auto["messages"]
+               if m.startswith(f"async checkpoint: skipping step {second} ")]
+    backstop = [m for m in auto["messages"] if m.startswith("async checkpoint starvation")]
+    manager = CheckpointManager(ckpt)
+    best = manager.best_step()
+    final = ckpt / f"step_{steps:010d}" / "meta.json"
+    if not (len(skipped) == 1 and "accept interval" in skipped[0] and backstop
+            and [s["step"] for s in auto["saves"]] == [first, second, steps]
+            and [s["force"] for s in auto["saves"]] == [False, False, True]
+            and manager.all_steps() == [first, steps] and final.exists()
+            and json.loads(final.read_text()).get("post_starvation_final")
+            and best == steps == second and summary["best_step"] == second):
+        raise RuntimeError(
+            f"lifecycle checkpoints: saves {auto['saves']}, skipped {skipped}, backstop "
+            f"{backstop}, durable {manager.all_steps()}, best_step() {best}, summary best "
+            f"{summary['best_step']} (epoch 2 must improve on epoch 1, its save be skipped "
+            "by the 900 s interval and the final state persisted by the backstop)")
+    log(f"  {chosen[0]}")
+    log(f"  train-model --exec auto ({summary['execution_rung']}): 2 epochs, {steps} steps of "
+        f"{LIFECYCLE_B}, losses {[r['loss'] for r in records]}, approx bfloat16 val recall@10 "
+        f"{[r['val/recall@10'] for r in records]} over {LIFECYCLE_HELD} rows (10x random "
+        f"{100 / LIFECYCLE_ITEMS:.3g}); epochs' examples/s "
+        f"{[round(r['examples_per_sec']) for r in records]}; {auto['seconds']:.1f} s; launches "
+        f"{auto['launches']} (one a step) ({card})")
+    log(f"  saves (step, force, seconds waited for the save in flight, peak device GiB of the "
+        f"epoch and its validation before the save, and over the save's snapshot): "
+        f"{auto['saves']} ({card}); epoch 2's save skipped: '{skipped[0]}'; backstop: "
+        f"'{backstop[0]}'; durable {manager.all_steps()}, best_step() {best}")
+    if records[-1]["val/recall@10"] < 10 * 10 / LIFECYCLE_ITEMS:
+        raise RuntimeError(f"lifecycle: val recall@10 {records[-1]['val/recall@10']} under 10x "
+                           "random")
+
+    # evaluate-model with the exact overrides on best_step()'s checkpoint.
+    ev_args = ["--device", "cuda", "--checkpoint-dir", str(ckpt), "--prepared-dir",
+               str(prepared), "--rows", str(LIFECYCLE_HELD)]
+    t = time.perf_counter()
+    seen, searched = [], []
+    with evaluated_users(seen), searches_watched(searched):
+        test = run_cli(eval_main, ev_args + ["--subset", "test", "--override", *EXACT_EVAL])
+    t_eval = time.perf_counter() - t
+    if test["checkpoint_step"] != best:
+        raise RuntimeError(f"evaluate-model restored step {test['checkpoint_step']}, "
+                           f"best_step() {best}")
+    if set(searched) != {("topk_mips_twopass", "torch.float32", LIFECYCLE_ITEMS)}:
+        raise RuntimeError(f"evaluate-model with the exact overrides searched {set(searched)}")
+    val_approx = run_cli(eval_main, ev_args + ["--subset", "val"])["metrics"]
+    val_exact = run_cli(eval_main, ev_args + ["--subset", "val", "--override",
+                                              *EXACT_EVAL])["metrics"]
+    if abs(val_approx["recall@10"] - records[-1]["val/recall@10"]) > 1.0 / LIFECYCLE_HELD:
+        raise RuntimeError(f"evaluate-model val recall@10 {val_approx['recall@10']} != the "
+                           f"last epoch's {records[-1]['val/recall@10']}")
+    log(f"  evaluate-model (exact overrides): step {test['checkpoint_step']} = best_step(), "
+        f"{test['rows']} test rows, recall@10 {test['metrics']['recall@10']}, ndcg@10 "
+        f"{test['metrics']['ndcg@10']}; {t_eval:.1f} s ({card})")
+    log(f"  the same {LIFECYCLE_HELD} val rows: recall@10 approx bfloat16 "
+        f"{val_approx['recall@10']} (the last epoch's validation, within one rank flip) / "
+        f"exact float32 {val_exact['recall@10']}; ndcg@10 {val_approx['ndcg@10']} / "
+        f"{val_exact['ndcg@10']}")
+
+    # train-model --exec stream: one epoch in segments of 64 and a short one.
+    sckpt, stream = work / "stream", {}
+    ssummary = lifecycle_train(sckpt, streamed, "stream", 1, stream)
+    srec, ssteps = stream["records"][-1], stream["steps"]
+    want = [64] * (ssteps // 64) + [ssteps % 64]
+    if (ssummary["execution_rung"] != "stream" or ssteps % 64 == 0 or ssteps < 64
+            or stream["segments"] != want or "segment_time_p50_ms" not in srec):
+        raise RuntimeError(f"lifecycle --exec stream: rung {ssummary['execution_rung']}, "
+                           f"{ssteps} steps in segments {stream['segments']}, record {srec}")
+    log(f"  train-model --exec stream: {ssteps} steps in segments {stream['segments']}, loss "
+        f"{srec['loss']}, segment_time_p50_ms {srec['segment_time_p50_ms']}, "
+        f"{srec['examples_per_sec']:.0f} examples/s, val recall@10 {srec['val/recall@10']}; "
+        f"{stream['seconds']:.1f} s; launches {stream['launches']} (one a step) ({card})")
+
+    # serve-model's service over the auto run's checkpoint, exact and bfloat16.
+    # The exact evaluator's reference takes each request's users as one
+    # batch, as the service does: the bf16 user tower's GEMMs may round
+    # otherwise at another batch size, and near-tied ranks then swap.
+    users = seen[0][:LIFECYCLE_SERVE_USERS]
+    requests = [users[i:i + 1] for i in range(4)] + [users]
+    base = load_config_for_checkpoint(ckpt)
+    served = {}
+    for label, itype, dtype in SERVE_VARIANTS[:2]:
+        t = time.perf_counter()
+        service = build_service(serving_config(itype, dtype, base), str(ckpt), device="cuda")
+        t_build = time.perf_counter() - t
+        if service.index.checkpoint_step != best:
+            raise RuntimeError(f"{label} service serves step {service.index.checkpoint_step}")
+        rows = [r for q in requests
+                for r in service.recommend({"user_idx": q.tolist(), "k": SERVE_K})["results"]]
+        vals = np.array([r["scores"] for r in rows])
+        ids = np.array([r["item_idx"] for r in rows])
+        if vals.shape != (4 + len(users), SERVE_K) or not np.isfinite(vals).all():
+            raise RuntimeError(f"{label} service: scores {vals.shape}")
+        served[label] = (ids, t_build)
+        if label == "float32_exact":
+            params = service.index.params
+            exact_cfg = base.with_overrides(dict(x.split("=") for x in EXACT_EVAL))
+            ev = Evaluator(exact_cfg, LIFECYCLE_ITEMS, batch_size=EVAL_B, device="cuda")
+            with torch.no_grad():
+                corpus = ev._encode_corpus(params)
+                ref = [topk_mips_twopass(
+                    two_tower.embed_users(params, torch.as_tensor(q).cuda(), base.model),
+                    corpus, SERVE_K, chunk_size=ev.corpus_chunk_size) for q in requests]
+            flips = same_topk((vals, ids), (torch.cat([v for v, _ in ref]).cpu().numpy(),
+                                            torch.cat([i for _, i in ref]).cpu().numpy()),
+                              "lifecycle exact service", atol=1e-6)
+            del ev, corpus, ref, params
+        del service
+        torch.cuda.empty_cache()
+    bf16_recall = recall_at(served["bfloat16"][0], served["float32_exact"][0])
+    log(f"  serve-model's service over step {best}: exact /recommend for {len(users)} test "
+        f"users (4 alone, then one request of {len(users)}) = the exact evaluator's top-"
+        f"{SERVE_K} (scores within the responses' 6 decimals, ids equal outside ties; "
+        f"{flips} tied ranks with other ids); bfloat16 recall@{SERVE_K} against exact "
+        f"{bf16_recall}; builds {served['float32_exact'][1]:.1f} / "
+        f"{served['bfloat16'][1]:.1f} s ({card})")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 7g: {seconds:.1f} s ({card})")
+    return {
+        "launches_auto": row_launches(auto["launches"]),
+        "launches_stream": row_launches(stream["launches"]),
+        "auto": {"steps": steps, "seconds": auto["seconds"], "saves": auto["saves"],
+                 "val_recall_at_10": [r["val/recall@10"] for r in records],
+                 "examples_per_sec": [r["examples_per_sec"] for r in records],
+                 "steady_examples_per_sec": summary["steady_examples_per_sec"]},
+        "evaluate": {"step": test["checkpoint_step"], "rows": test["rows"],
+                     "test": test["metrics"], "val_approx": val_approx, "val_exact": val_exact,
+                     "seconds": t_eval},
+        "stream": {"steps": ssteps, "segments": stream["segments"],
+                   "segment_time_p50_ms": srec["segment_time_p50_ms"],
+                   "seconds": stream["seconds"]},
+        "serve": {"bfloat16_recall_at_100": bf16_recall, "tied_flips": flips},
+        "seconds": seconds,
+    }
+
 # The config2 oracle corpus, its prepared artifact and its exact ceiling are
 # deterministic numpy: the JAX package's record of its config2 run
 # (benchmarks/results/oracle_parity_config2.json: the generator's stats,
@@ -2779,48 +3185,24 @@ MESH_CLI_TRAIN = ["--writers", "jsonl", "--override", f"training.batch_size={MAI
                   "training.epochs=1", "mesh.a2a_capacity_factor=2.0"]
 
 
-def write_mesh_artifact(out: Path) -> Path:
-    """The artifact of MESH_CLI_ROWS interactions over a vocab of NUM_USERS
-    x NUM_ITEMS (ids zero-padded, so their sorted order is their index),
-    in prepare-data's layout: combined_interactions.parquet (user_idx,
-    item_idx, rating, timestamp) and vocab/."""
-    import pyarrow as pa
-    import pyarrow.parquet as pq
-
-    from twotower_tpu_torch.data import generate_interactions
-    from twotower_tpu_torch.data.vocab import VocabPair, Vocabulary
-
-    raw = generate_interactions(num_users=NUM_USERS // MESH_CLI_SPREAD,
-                                num_items=NUM_ITEMS // MESH_CLI_SPREAD,
-                                num_interactions=MESH_CLI_ROWS, device="cuda")
-    users = np.array([int(u[1:]) for u in raw.user_id], np.int32) * MESH_CLI_SPREAD
-    items = np.array([int(i[1:]) for i in raw.item_id], np.int32) * MESH_CLI_SPREAD
-    out.mkdir(parents=True)
-    pq.write_table(pa.table({"user_idx": users, "item_idx": items, "rating": raw.rating,
-                             "timestamp": raw.timestamp}),
-                   out / "combined_interactions.parquet")
-
-    def vocab(prefix: str, n: int, idx: np.ndarray) -> Vocabulary:
-        ids = np.char.add(prefix, np.char.zfill(np.arange(n).astype(str), 7))
-        return Vocabulary(ids=ids.astype(object),
-                          counts=np.bincount(idx, minlength=n).astype(np.int64))
-
-    VocabPair(users=vocab("u", NUM_USERS, users),
-              items=vocab("i", NUM_ITEMS, items)).save(out / "vocab")
-    return out
-
-
 def mesh_cli(card: str, work: Path) -> dict:
-    """train-model --mesh --prepared-dir over write_mesh_artifact's 1M x
+    """train-model --mesh --prepared-dir over write_artifact's 1M x
     500k vocab (host loop, then --device-loop), each followed by
     evaluate-model --mesh and evaluate-model on its checkpoint (equal
     within 1e-6); launches = train-model's steps."""
+    from twotower_tpu_torch.data import generate_interactions
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.train import main as train_main
 
     t = time.perf_counter()
-    data = ["--prepared-dir", str(write_mesh_artifact(work / "cli_prepared"))]
+    raw = generate_interactions(num_users=NUM_USERS // MESH_CLI_SPREAD,
+                                num_items=NUM_ITEMS // MESH_CLI_SPREAD,
+                                num_interactions=MESH_CLI_ROWS, device="cuda")
+    data = ["--prepared-dir", str(write_artifact(work / "cli_prepared", NUM_USERS, NUM_ITEMS, {
+        "user_idx": (id_numbers(raw.user_id) * MESH_CLI_SPREAD).astype(np.int32),
+        "item_idx": (id_numbers(raw.item_id) * MESH_CLI_SPREAD).astype(np.int32),
+        "rating": raw.rating, "timestamp": raw.timestamp}))]
     log(f"  artifact: {MESH_CLI_ROWS} interactions over {NUM_USERS} users x {NUM_ITEMS} "
         f"items written in {time.perf_counter() - t:.1f} s")
     out = {}
@@ -3240,44 +3622,43 @@ def run_mesh_phase(card: str):
     return one, two, tools, work / "cli_host"
 
 
-def kernel_times(errs, launches, report):
+def kernel_timing(batch: int, errs: dict) -> dict:
+    """Per kernel at batch x batch x MAIN_D: device ms (one call between
+    two events, and back to back), its plain version's, one torch.matmul's
+    of the same product, and the bound (see phase 9 in the module
+    docstring); ``errs`` are phase 3's max abs errors at this shape."""
     from twotower_tpu_torch.ops import kernels
 
-    u, v, ids, cols, g = loss_inputs(MAIN_B, MAIN_D, MAIN_B, seed=7)
+    u, v, ids, cols, g = loss_inputs(batch, MAIN_D, batch, seed=7)
     args = (u, v, ids, cols, 0)
     lse = kernels.fwd_plain(*args, 1 / TEMP)[1]
     bwd_args = (*args, lse, g, 1 / TEMP)
-    r = b = MAIN_B
+    r = b = batch
     d = MAIN_D
     io_in = (r + b) * d * 4 + 2 * b * 4  # U, V, ids, cols
     specs = [
-        # name, wrapper, plain, arguments, flops, bytes, TPU kernel replaced
+        # name, wrapper, plain, arguments, flops, bytes
         ("fused_loss_fwd", kernels.fused_fwd, kernels.fwd_plain, (*args, 1 / TEMP),
-         2 * r * b * d, io_in + 4 * r * 4, "twotower_tpu/ops/pallas_kernels.py:132"),
+         2 * r * b * d, io_in + 4 * r * 4),
         ("fused_loss_bwd_du", kernels.fused_bwd_du, kernels.bwd_du_plain, bwd_args,
-         4 * r * b * d, io_in + 2 * r * 4 + r * d * 4, "twotower_tpu/ops/pallas_kernels.py:230"),
+         4 * r * b * d, io_in + 2 * r * 4 + r * d * 4),
         ("fused_loss_bwd_dv", kernels.fused_bwd_dv, kernels.bwd_dv_plain, bwd_args,
-         4 * r * b * d, io_in + 2 * r * 4 + b * d * 4, "twotower_tpu/ops/pallas_kernels.py:230"),
+         4 * r * b * d, io_in + 2 * r * 4 + b * d * 4),
     ]
     library_ms = time_ms(lambda: torch.matmul(u, v.T))
     library_ms_batched = time_ms_batched(lambda: torch.matmul(u, v.T))
-    rows = []
-    for name, fn, plain, fargs, flops, nbytes, replaces in specs:
+    out = {}
+    for name, fn, plain, fargs, flops, nbytes in specs:
         ops_ms, route = min((flops / PEAK_F32_FLOPS * 1e3, "f32_fma"),
                             (3 * flops / PEAK_TF32_FLOPS * 1e3, "3xtf32"))
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         ms = time_ms(lambda: fn(*fargs))
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"twotower_tpu_torch/ops/csrc/{KERNELS[name][1]}",
-            "replaces": replaces,
-            "launches": launches[fn.__name__],
+        ms_batched = time_ms_batched(lambda: fn(*fargs))
+        out[name] = {
             "max_abs_err": errs[name],
             "ms": ms,
-            "ms_batched": time_ms_batched(lambda: fn(*fargs)),
-            "host_us": host_us(lambda: fn(*fargs)),
+            "ms_batched": ms_batched,
             "plain_ms": time_ms(lambda: plain(*fargs)),
             "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -3285,9 +3666,34 @@ def kernel_times(errs, launches, report):
             "library_ms_batched": library_ms_batched,
             "bound_route": route if ops_ms >= bytes_ms else "bytes",
             "share_of_bound": bound_ms / ms,
-            **report[name],
-        })
-    return rows
+            "share_of_bound_batched": bound_ms / ms_batched,
+            "host_us": host_us(lambda: fn(*fargs)),
+        }
+    return out
+
+
+def kernel_times(errs, launches, report):
+    """Phase 9's rows: each kernel at the main path's shape, with its
+    timing at config 3's batch (phase 7g) under ``at_b8192``."""
+    from twotower_tpu_torch.ops import kernels
+
+    wrappers = {"fused_loss_fwd": kernels.fused_fwd, "fused_loss_bwd_du": kernels.fused_bwd_du,
+                "fused_loss_bwd_dv": kernels.fused_bwd_dv}
+    replaces = {"fused_loss_fwd": "twotower_tpu/ops/pallas_kernels.py:132",
+                "fused_loss_bwd_du": "twotower_tpu/ops/pallas_kernels.py:230",
+                "fused_loss_bwd_dv": "twotower_tpu/ops/pallas_kernels.py:230"}
+    main = kernel_timing(MAIN_B, errs[MAIN_B, MAIN_D, MAIN_B, 0])
+    big = kernel_timing(LIFECYCLE_B, errs[LIFECYCLE_B, MAIN_D, LIFECYCLE_B, 0])
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": f"twotower_tpu_torch/ops/csrc/{KERNELS[name][1]}",
+        "replaces": replaces[name],
+        "launches": launches[wrappers[name].__name__],
+        **main[name],
+        **report[name],
+        "at_b8192": big[name],
+    } for name in wrappers]
 
 
 def main() -> int:
@@ -3380,6 +3786,11 @@ def main() -> int:
     log("phase 7f: orchestrate-pipeline --skip-download, then train-model --prepared-dir")
     orchestrated = run_orchestrate_slice(card)
 
+    log("phase 7g: the config-3 lifecycle at full width")
+    lifecycle = run_lifecycle(card)
+    log(json.dumps({"lifecycle": {k: v for k, v in lifecycle.items()
+                                  if not k.startswith("launches")}}))
+
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
@@ -3414,6 +3825,8 @@ def main() -> int:
         row["launches_text_train_model"] = text_slice["launches"][row["name"]]
         row["launches_transformer_train_model"] = transformer["launches"][row["name"]]
         row["launches_orchestrated_train_model"] = orchestrated["launches"][row["name"]]
+        row["launches_lifecycle_auto"] = lifecycle["launches_auto"][row["name"]]
+        row["launches_lifecycle_stream"] = lifecycle["launches_stream"][row["name"]]
         row["launches_mesh_nccl_trainer"] = mesh_one["launches_trainer"][row["name"]]
         row["launches_mesh_nccl_device_loop"] = mesh_one["launches_graph"][row["name"]]
         row["launches_mesh_nccl_train_model"] = mesh_one["launches_cli_host"][row["name"]]

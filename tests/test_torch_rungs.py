@@ -5,13 +5,15 @@ the same ``train_state_bytes`` / ``eval_corpus_bytes``; the port's state
 estimate against its own ``TrainState``; ``device_free_bytes`` on the CPU."""
 
 import itertools
+from pathlib import Path
 
 import pytest
 
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
 from twotower_tpu.config import Config as JaxConfig
+from twotower_tpu.config import load_config as jax_load_config
 from twotower_tpu.training import rungs as jax_rungs
-from twotower_tpu_torch.config import Config
+from twotower_tpu_torch.config import Config, load_config
 from twotower_tpu_torch.training import init_train_state, make_optimizer, rungs
 from twotower_tpu_torch.training.state import tree_leaves
 
@@ -63,6 +65,22 @@ def test_state_bytes_track_the_ports_state():
     leaves = [state.params, state.opt_state.mu, state.opt_state.nu, state.table_state]
     real = sum(t.numel() * t.element_size() for t in tree_leaves(leaves))
     assert rungs.train_state_bytes(cfg, 1000, 700) == pytest.approx(real, rel=0.2)
+
+
+def test_config3_on_an_80_gib_card_chooses_the_device_loop():
+    """configs/lifecycle_50m_1chip.yaml at the counts of its 50M-row artifact
+    (49,684,336 rows after prepare, 80% of them train; 2,499,952 users x
+    1,145,145 items) on an 80 GiB card beside a 96 GiB host: the device loop,
+    as the JAX package decides at the same inputs."""
+    path = Path(__file__).resolve().parents[1] / "configs" / "lifecycle_50m_1chip.yaml"
+    cfg, jcfg = load_config(path), jax_load_config(path)
+    kw = dict(n_train=int(49_684_336 * 0.8), num_users=2_499_952, num_items=1_145_145,
+              device_free_bytes=80 * GB, host_available_bytes=96 * GB)
+    ours = rungs.choose_execution_rung(config=cfg, **kw)
+    ref = jax_rungs.choose_execution_rung(config=jcfg, **kw)
+    assert ours.rung == "device_loop"
+    assert (ours.rung, ours.shuffle_buffer, ours.reason) == (ref.rung, ref.shuffle_buffer,
+                                                             ref.reason)
 
 
 def test_unknown_device_budget_assumes_16_gb():
