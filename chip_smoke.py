@@ -200,6 +200,29 @@
    evaluator's topk_mips_twopass (scores within the responses' 6
    decimals, ids equal outside tied ranks); bfloat16's recall@100 against
    it. Prints one {"lifecycle": ...} JSON line.
+7h. The config-3 oracle at full width, cut in depth (ORACLE3_* constants):
+   tools/oracle_parity.py's config3 preset as it stands (embedding 128,
+   towers [512,256,128], batch 8192, dropout 0.25, L2 1e-5, lazy-Adam
+   tables, async checkpoints, patience 3; 256 clusters, latent 16,
+   within-zipf 0.5, seed 42), the generate stage through generate_parquet
+   and the others through the tool's own stage argv, in process, with
+   rows, users and items divided by 12 (about 4.2M rows x
+   20.8k users x 100k items: the full run's 200 rows a user and 42 an
+   item), the clusters drawn on the card by force, the ceiling, plug-in
+   and evaluate-model capped at 100k strided test rows, and 2 epochs.
+   Checks: the full-shape teacher (250k x 1.2M, drawn with 3,000 rows on
+   the card's path) has the sha256 the JAX package gives
+   (ORACLE3_TEACHER_SHA256); exact_ranks of 256 of its rows over all 1.2M
+   items, at the chunk free memory gives and at the full run's, equal an
+   unchunked brute force of the same float32 scores, and differ from a
+   float64 brute force only by items tied in float32 and not in float64;
+   the card's cluster draws for three users of the phase's teacher pass
+   a chi-square test against P(cluster | user) at 0.999; plug-in recall@10
+   at most the ceiling's plus 3 standard errors; the device loop chosen;
+   launch counts set to 0 just before the train stage and read just after
+   equal its steps; best val recall@10 at least 10x random;
+   evaluate-model restores the step best_step() names. Prints stage
+   seconds, fractions and the rest as one {"oracle_config3": ...} line.
 8. Serving (serve-model: RetrievalIndex, RecommendService, MicroBatcher
    through CoalescedRoutes under asyncio; no HTTP, as the card's machine has
    no aiohttp). Launch counts set to 0 before and read after: serving runs
@@ -320,7 +343,8 @@
    phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
    serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
    replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs, in
-   phase 7g's --exec auto and --exec stream runs, and in phase 10's mesh
+   phase 7g's --exec auto and --exec stream runs, in phase 7h's train
+   stage (launches_oracle_config3), and in phase 10's mesh
    runs (10b's Trainer, device-loop epoch and both train-model --mesh runs;
    rank 1's in 10c's 2x1 and 1x2).
    Then one JSON line of kernels, the median step time, and the last line
@@ -2252,24 +2276,6 @@ ORACLE_RECALL_TOL, ORACLE_RANK_METRIC_TOL = 1.2e-5, 1e-6
 ORACLE_MIN_FRACTION = 0.75
 
 
-def counting_runner(launches: dict):
-    """``tools.oracle_parity.in_process_runner`` that puts the train stage's
-    kernel launches (counts set to 0 just before, read just after) in
-    ``launches``."""
-    from twotower_tpu_torch.ops import kernels
-    from twotower_tpu_torch.tools.oracle_parity import in_process_runner
-
-    def run(module: str, argv: list[str]) -> str:
-        if not module.endswith(".train"):
-            return in_process_runner(module, argv)
-        kernels.reset_launch_counts()
-        out = in_process_runner(module, argv)
-        launches.update({w.__name__: w.launches for w in kernels.WRAPPERS})
-        return out
-
-    return run
-
-
 def check_oracle_metrics(what: str, got: dict, want: dict) -> None:
     bad = {k: (got[k], v) for k, v in want.items()
            if abs(got[k] - v) > (ORACLE_RECALL_TOL if k.startswith("recall")
@@ -2286,11 +2292,13 @@ def run_oracle_parity(card: str) -> dict:
     ``ORACLE_MIN_FRACTION`` of the ceiling's recall@10, and each fused-loss
     kernel must launch once a train step."""
     from twotower_tpu_torch.data.prepared import PreparedDataset
-    from twotower_tpu_torch.tools.oracle_parity import run_pipeline
+    from twotower_tpu_torch.tools.oracle_parity import (
+        CountingRunner, in_process_runner, run_pipeline)
 
     work = fresh_dir(ROOT / "build" / "oracle_config2")
-    launches: dict = {}
-    report = run_pipeline("config2", work, device="cuda", runner=counting_runner(launches))
+    runner = CountingRunner(other=in_process_runner)
+    report = run_pipeline("config2", work, device="cuda", runner=runner)
+    launches = runner.launches
     got_gen = {k: report["generator"][k] for k in ORACLE_GENERATOR}
     got_art = {k: report["artifact"][k] for k in ORACLE_ARTIFACT}
     rule = PreparedDataset(work / "prepared").temporal_rule(0.8, 0.1)
@@ -2325,6 +2333,222 @@ def run_oracle_parity(card: str) -> dict:
         raise RuntimeError(f"student reaches {fraction} of the ceiling's recall@10, under "
                            f"{ORACLE_MIN_FRACTION}")
     return {"launches": row_launches(launches), "report": report}
+
+
+# Phase 7h: the config-3 oracle, tools/oracle_parity.py's config3 preset as
+# it stands (embedding 128, towers [512,256,128], batch 8192, dropout 0.25,
+# L2 1e-5, lazy-Adam tables, async checkpoints, patience 3; 256 clusters,
+# latent 16, within-zipf 0.5, seed 42), cut in depth: the generate stage's
+# values through generate_parquet (to force the card's draw), the other
+# stages through the tool's own argv. Cuts: rows, users and items all
+# divided by ORACLE3_CUT (50M x 250k x 1.2M -> 4,166,666 rows x 20,833
+# users x 100,000 items), which keeps the full run's 200 rows a user and 42
+# an item, so the 5-core filter keeps nearly every item, as at full depth
+# (99.4% against 99.2%); with a twelfth of the items in each cluster a
+# user's draws repeat more, and the dedupe keeps 93.6% of the rows against
+# 99.0% (measured on the H100); the clusters drawn on the card by force
+# (use_device=True: 4.2M x 256 is under 2^31; the full run reaches the
+# card's draw by itself); the ceiling, the plug-in and evaluate-model on
+# ORACLE3_HELD strided test rows (the full run: 1M); 2 epochs (the full
+# run: up to 16). Validation keeps the tool's --val-rows default. The full
+# depth is the tool's own run (README's port section).
+ORACLE3_CUT = 12
+ORACLE3_HELD = 100_000
+ORACLE3_EPOCHS = 2
+# tools/oracle_parity.py::teacher_digest of the full-shape config-3 teacher
+# (250k x 16 user latents, 256 x 16 cluster latents, the clusters and
+# log-popularity of 1.2M items; seed 42), computed by the JAX package's
+# generator on the CPU (tests/test_torch_oracle_config3.py recomputes it).
+ORACLE3_TEACHER_SHA256 = "e90c1be3ffff0c41968b7ed9381301ffe433f5d817076049c3dab159337dcfcc"
+ORACLE3_TEACHER_ROWS = 3_000  # rows drawn with it; the teacher is drawn before any row
+ORACLE3_RANK_ROWS = 256
+# The card's cluster draws against the teacher's P(cluster | user), the rule
+# of tests/test_torch_synthetic_scale.py::test_torch_sampler_follows_the_softmax
+# at the phase's size: ORACLE3_DRAWS draws for each of ORACLE3_DRAW_USERS
+# users of the phase's teacher (256 clusters), the clusters expected fewer
+# than 5 times pooled into one bin, and the chi-square statistic under the
+# 0.999 quantile of chi2(bins - 1) (Wilson-Hilferty; Z_999 is the normal's).
+ORACLE3_DRAWS = 2_000_000
+ORACLE3_DRAW_USERS = (0, 1, 2)
+Z_999 = 3.090232
+
+
+def oracle3_preset(cut: int = ORACLE3_CUT) -> dict:
+    """The tool's config3 preset with rows, users and items divided by ``cut``."""
+    from twotower_tpu_torch.tools.oracle_parity import SCALES
+
+    full = SCALES["config3"]
+    return dict(full, rows=full["rows"] // cut, users=full["users"] // cut,
+                items=full["items"] // cut)
+
+
+def generate_oracle3(out: Path, preset: dict, rows: int) -> dict:
+    """The generate stage's draw (its argv's values) with the clusters drawn
+    on the card."""
+    from twotower_tpu_torch.data.synthetic_scale import generate_parquet
+
+    return generate_parquet(out, num_interactions=rows, num_users=preset["users"],
+                            num_items=preset["items"], num_clusters=preset["clusters"],
+                            latent_dim=preset["latent"], within_zipf=preset["zipf"], seed=42,
+                            use_device=True, device="cuda", oracle=True)
+
+
+def generated_rows(out: Path, stats: dict) -> tuple[np.ndarray, np.ndarray]:
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    table = pa.concat_tables([pq.read_table(out / f) for f in stats["files"]])
+    return np.array(id_numbers(table["user_id"])), np.array(id_numbers(table["parent_asin"]))
+
+
+def check_oracle3_ranks(npz: Path, users: np.ndarray, items: np.ndarray) -> dict:
+    """exact_ranks over every item of ``npz``'s teacher, at the chunk its
+    free memory gives and at the chunk the full run's 4096-row batches get,
+    against an unchunked brute force of the same float32 scores (equal) and
+    a float64 one: a rank may differ from the float64 rank only by the
+    items that tie the true item in float32 and not in float64."""
+    from twotower_tpu_torch.evaluation import oracle
+
+    dev = torch.device("cuda")
+    teacher = oracle.OracleTeacher(npz)
+    n = teacher.num_items
+    run_chunk = oracle._chunk_items(4096, n, dev)
+    auto = oracle.exact_ranks(teacher, users, items, device="cuda")
+    chunked = oracle.exact_ranks(teacher, users, items, chunk=run_chunk, device="cuda")
+    logp = torch.from_numpy(teacher.log_p_clusters(users)).to(dev)
+    cluster = torch.from_numpy(teacher.item_cluster.astype(np.int64)).to(dev)
+    log_pop = torch.from_numpy(teacher.log_pop).to(dev)
+    true = torch.from_numpy(items.astype(np.int64)).to(dev)
+    idx = torch.arange(n, device=dev)[None, :]
+    r32, r64, ambiguous = [], [], []
+    for s in range(0, len(users), 32):
+        ti = true[s:s + 32, None]
+
+        def rank(scores):
+            t = scores.gather(1, ti)
+            return ((scores > t) | ((scores == t) & (idx < ti))).sum(1), scores == t
+
+        a, tie32 = rank(logp[s:s + 32][:, cluster] + log_pop)
+        b, tie64 = rank(logp[s:s + 32].double()[:, cluster] + log_pop.double())
+        r32.append(a)
+        r64.append(b)
+        ambiguous.append((tie32 & ~tie64).sum(1))
+    r32, r64, ambiguous = (torch.cat(x).cpu().numpy() for x in (r32, r64, ambiguous))
+    if not (np.array_equal(auto, r32) and np.array_equal(chunked, r32)):
+        raise RuntimeError(f"oracle3 exact ranks off the brute force: {np.abs(auto - r32).max()}, "
+                           f"{np.abs(chunked - r32).max()}")
+    if (np.abs(r32 - r64) > ambiguous).any():
+        raise RuntimeError("oracle3 exact ranks off the float64 brute force past the float32 ties")
+    return {"rows": len(users), "items": n, "chunk": run_chunk,
+            "equal_float64": int((r32 == r64).sum()), "median_rank": float(np.median(r32))}
+
+
+def check_oracle3_sampler(npz: Path) -> list[dict]:
+    """The card's cluster draws against P(cluster | user) (ORACLE3_DRAWS)."""
+    from twotower_tpu_torch.data.synthetic_scale import _ClusterChoiceTorch
+
+    with np.load(npz) as z:
+        u_lat, c_lat, scale = z["u_lat"], z["c_lat"], float(z["affinity_scale"])
+    pick = _ClusterChoiceTorch(u_lat, c_lat, scale, seed=11, device=torch.device("cuda"))
+    out = []
+    for user in ORACLE3_DRAW_USERS:
+        draws = pick(np.full(ORACLE3_DRAWS, user, np.int64))
+        logits = scale * (u_lat[user].astype(np.float64) @ c_lat.T.astype(np.float64))
+        logits /= np.sqrt(u_lat.shape[1])
+        p = np.exp(logits - logits.max())
+        p /= p.sum()
+        expected = p * ORACLE3_DRAWS
+        observed = np.bincount(draws, minlength=len(p)).astype(np.float64)
+        keep = expected >= 5
+        exp_b = np.append(expected[keep], expected[~keep].sum())
+        obs_b = np.append(observed[keep], observed[~keep].sum())
+        chi2 = float(((obs_b - exp_b) ** 2 / exp_b).sum())
+        k = len(exp_b) - 1
+        bound = k * (1 - 2 / (9 * k) + Z_999 * math.sqrt(2 / (9 * k))) ** 3
+        out.append({"user": user, "bins": len(exp_b), "chi2": chi2, "bound": bound})
+        if chi2 >= bound:
+            raise RuntimeError(f"oracle3 card draws off P(cluster | user): {out[-1]}")
+    return out
+
+
+def run_oracle3(card: str) -> dict:
+    """Phase 7h (module docstring): the config-3 oracle at full width, cut
+    in depth (ORACLE3_CUT), through tools/oracle_parity.py's stage argv."""
+    from twotower_tpu_torch.tools.oracle_parity import (
+        SCALES, CountingRunner, in_process_runner, last_json_line, stage_commands,
+        student_report, teacher_digest)
+
+    t_phase = time.perf_counter()
+    work = fresh_dir(ROOT / "build" / "oracle_config3_cut")
+    seconds = {}
+    t = time.perf_counter()
+    full = work / "teacher_full"
+    full_stats = generate_oracle3(full, SCALES["config3"], ORACLE3_TEACHER_ROWS)
+    digest = teacher_digest(full / "oracle_teacher.npz")
+    if digest != ORACLE3_TEACHER_SHA256:
+        raise RuntimeError(f"config-3 teacher digest {digest}, not the JAX package's "
+                           f"{ORACLE3_TEACHER_SHA256}")
+    users, items = generated_rows(full, full_stats)
+    ranks = check_oracle3_ranks(full / "oracle_teacher.npz", users[:ORACLE3_RANK_ROWS],
+                                items[:ORACLE3_RANK_ROWS])
+    seconds["teacher_checks"] = time.perf_counter() - t
+    log(f"  full-shape teacher digest = the JAX package's; exact ranks of {ranks['rows']} rows "
+        f"over {ranks['items']} items = the brute force (chunk {ranks['chunk']}; "
+        f"{ranks['equal_float64']} equal the float64 ranks, the rest within float32 ties)")
+
+    preset = oracle3_preset()
+    t = time.perf_counter()
+    gen = generate_oracle3(work / "gen", preset, preset["rows"])
+    seconds["generate"] = time.perf_counter() - t
+    draws = check_oracle3_sampler(work / "gen" / "oracle_teacher.npz")
+    log(f"  card draws against P(cluster | user): {draws}")
+    runner = CountingRunner(other=in_process_runner)
+    stages = {name: (module, argv) for name, module, argv in stage_commands(
+        preset, work, device="cuda", epochs=ORACLE3_EPOCHS, rows_cap=ORACLE3_HELD)}
+    outputs = {}
+    for name in ("prepare", "ceiling", "train", "evaluate"):
+        t = time.perf_counter()
+        outputs[name] = runner(*stages[name])
+        seconds[name] = time.perf_counter() - t
+    artifact = last_json_line(outputs["prepare"])
+    ceiling = last_json_line(outputs["ceiling"])
+    report = student_report(outputs["train"], outputs["evaluate"], work / "ckpt", ceiling, runner)
+    train, student = report["train"], report["student"]
+    c10, p10 = ceiling["metrics"]["recall@10"], ceiling["plugin_metrics"]["recall@10"]
+    se = math.sqrt(c10 * (1 - c10) / ceiling["rows"])
+    random10 = 10 / artifact["num_items"]
+    problems = []
+    if ceiling["rows"] != ORACLE3_HELD or student["rows"] != ORACLE3_HELD:
+        problems.append(f"rows {ceiling['rows']} / {student['rows']}")
+    if p10 > c10 + 3 * se:
+        problems.append(f"plug-in recall@10 {p10} over the ceiling's {c10} + 3 x {se}")
+    if train["execution_rung"] != "device_loop":
+        problems.append(f"rung {train['execution_rung']}")
+    if any(v != train["steps"] for v in train["launches"].values()):
+        problems.append(f"launches {train['launches']} != {train['steps']} steps")
+    if train["best_val_metric"] < 10 * random10:
+        problems.append(f"best val recall@10 {train['best_val_metric']} under 10x random")
+    if student["checkpoint_step"] != train["restorable_best_step"]:
+        problems.append(f"evaluate-model restored {student['checkpoint_step']}, best_step() "
+                        f"{train['restorable_best_step']}")
+    if not all(math.isfinite(v) for v in student["metrics"].values()):
+        problems.append(f"student metrics {student['metrics']}")
+    if problems:
+        raise RuntimeError(f"phase 7h: {problems}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    log(f"  generator {gen['num_interactions']} rows; artifact {artifact['num_users']} users x "
+        f"{artifact['num_items']} items; ceiling recall@10 {c10}, plug-in {p10} (se {se:.2e}); "
+        f"train {train}; student recall@10 {student['metrics']['recall@10']}, fraction "
+        f"{report['ceiling_fraction']['recall@10']}; seconds {seconds} ({card})")
+    return {
+        "seconds": seconds, "teacher_sha256": digest, "ranks": ranks, "draws": draws,
+        "artifact": {k: artifact[k] for k in ("num_interactions", "num_users", "num_items")},
+        "ceiling": ceiling, "train": train, "student": student["metrics"],
+        "checkpoint_step": student["checkpoint_step"],
+        "ceiling_fraction": report["ceiling_fraction"],
+        "plugin_fraction": report["plugin_fraction"],
+        "launches": row_launches(train["launches"]),
+    }
 
 
 # Serving: (label, serving.index_type, serving.corpus_dtype) of the four
@@ -3791,6 +4015,10 @@ def main() -> int:
     log(json.dumps({"lifecycle": {k: v for k, v in lifecycle.items()
                                   if not k.startswith("launches")}}))
 
+    log("phase 7h: the config-3 oracle at full width, cut in depth")
+    oracle3 = run_oracle3(card)
+    log(json.dumps({"oracle_config3": {k: v for k, v in oracle3.items() if k != "launches"}}))
+
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
@@ -3827,6 +4055,7 @@ def main() -> int:
         row["launches_orchestrated_train_model"] = orchestrated["launches"][row["name"]]
         row["launches_lifecycle_auto"] = lifecycle["launches_auto"][row["name"]]
         row["launches_lifecycle_stream"] = lifecycle["launches_stream"][row["name"]]
+        row["launches_oracle_config3"] = oracle3["launches"][row["name"]]
         row["launches_mesh_nccl_trainer"] = mesh_one["launches_trainer"][row["name"]]
         row["launches_mesh_nccl_device_loop"] = mesh_one["launches_graph"][row["name"]]
         row["launches_mesh_nccl_train_model"] = mesh_one["launches_cli_host"][row["name"]]

@@ -115,3 +115,80 @@ def test_variants_tool_runs_each_variant(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="unknown variant"):
         oracle_variants.main(["--scale", "tiny", "--device", "cpu", "--work-dir",
                               str(tmp_path), "--variants", "nope"])
+
+
+def test_stage_commands_for_another_seed(tmp_path):
+    """``seed``: the train and evaluate stages get ``training.seed`` and their
+    own checkpoint directory; the other stages stay as they are."""
+    base = {name: argv for name, _, argv in oracle_parity.stage_commands(
+        "config3", tmp_path, device="cuda", rows_cap=1_000_000)}
+    seeded = {name: argv for name, _, argv in oracle_parity.stage_commands(
+        "config3", tmp_path, device="cuda", rows_cap=1_000_000, seed=1)}
+    for name in ("generate", "prepare", "ceiling"):
+        assert seeded[name] == base[name], name
+    for name in ("train", "evaluate"):
+        argv = seeded[name]
+        assert argv[argv.index("--checkpoint-dir") + 1] == str(tmp_path / "ckpt_seed1")
+        assert argv[-1] == "training.seed=1"
+        assert argv[:-1] == [str(tmp_path / "ckpt_seed1") if a == str(tmp_path / "ckpt") else a
+                             for a in base[name]]
+    evaluate = seeded["evaluate"]
+    assert evaluate[evaluate.index("--rows") + 1] == "1000000"
+    preset = dict(oracle_parity.SCALES["config3"], rows=10)
+    assert oracle_parity.stage_commands(preset, tmp_path, device="cpu")[0][2][4] == "10"
+
+
+def test_counting_runner_counts_the_train_stage_only(monkeypatch, caplog):
+    """Counts set to 0 just before the train stage and read just after;
+    the checkpoint manager's skip messages kept; other stages go to
+    ``other``."""
+    import logging
+
+    from twotower_tpu_torch.ops import kernels
+
+    def fake(module, argv):
+        for w in kernels.WRAPPERS:
+            w.launches += 7
+        logging.getLogger("twotower_tpu_torch.utils.checkpoint").info(
+            "async checkpoint: skipping step %d (a save is in flight; one snapshot at a time)", 5)
+        return "{}"
+
+    monkeypatch.setattr(oracle_parity, "in_process_runner", fake)
+    caplog.set_level(logging.INFO, logger="twotower_tpu_torch.utils.checkpoint")
+    others = []
+    runner = oracle_parity.CountingRunner(other=lambda m, a: others.append(m) or "{}")
+    kernels.fused_fwd.launches = 100
+    runner("twotower_tpu_torch.evaluation.evaluate", [])
+    runner("twotower_tpu_torch.training.train", [])
+    assert others == ["twotower_tpu_torch.evaluation.evaluate"]
+    assert runner.launches == {"fused_fwd": 7, "fused_bwd_du": 7, "fused_bwd_dv": 7}
+    assert runner.skipped_saves == [
+        "async checkpoint: skipping step 5 (a save is in flight; one snapshot at a time)"]
+
+
+def test_seeds_and_counts_in_one_run(tmp_path, monkeypatch):
+    """``run_pipeline`` with a ``CountingRunner`` and ``seeds=(1,)`` at the
+    tiny preset: the second student's report beside the first's, each with
+    its steps, launches (0: the CPU runs the plain loss), durable steps and
+    the step ``best_step()`` names, which evaluate-model restored; the
+    teacher's digest; the report written to ``out``."""
+    monkeypatch.setitem(oracle_parity.SCALES, "tiny", dict(TINY, epochs=2))
+    out = tmp_path / "report.json"
+    report = oracle_parity.run_pipeline(
+        "tiny", tmp_path / "work", device="cpu", seeds=(1,), out=out,
+        runner=oracle_parity.CountingRunner(other=oracle_parity.in_process_runner))
+    assert json.loads(out.read_text()) == json.loads(json.dumps(report))
+    assert report["teacher_sha256"] == oracle_parity.teacher_digest(
+        tmp_path / "work" / "gen" / "oracle_teacher.npz")
+    first, second = report, report["seeds"]["1"]
+    assert list(second["stages"]) == ["train", "evaluate"]
+    for rep, ckpt in ((first, "ckpt"), (second, "ckpt_seed1")):
+        train = rep["train"]
+        assert train["epochs_run"] == 2 and len(train["val_recall_at_10"]) == 2
+        assert train["launches"] == {"fused_fwd": 0, "fused_bwd_du": 0, "fused_bwd_dv": 0}
+        assert train["skipped_saves"] == [] and train["backstop_steps"] == []
+        assert train["restorable_best_step"] in train["durable_steps"]
+        assert rep["student"]["checkpoint_step"] == train["restorable_best_step"]
+        assert (tmp_path / "work" / ckpt / "train_summary.json").exists()
+        assert rep["ceiling_fraction"]["recall@10"] == pytest.approx(
+            rep["student"]["metrics"]["recall@10"] / report["ceiling"]["metrics"]["recall@10"])

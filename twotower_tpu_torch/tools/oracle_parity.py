@@ -5,8 +5,9 @@ report the student's metrics as fractions of the teacher's exact ceiling.
     python -m twotower_tpu_torch.tools.oracle_parity --scale config2   # on the card
 
 The port's twin of ``benchmarks/oracle_parity.py``, with the same presets
-and stages, each a subprocess of the port's modules (stage wall-clocks
-recorded):
+and stages, each a subprocess of the port's modules but the train stage,
+which runs in this process so that its fused-loss kernel launches are
+counted (``CountingRunner``; stage wall-clocks recorded):
 
 1. generate -- ``data.synthetic_scale --oracle``: sample interactions from
    a KNOWN teacher; write ``oracle_teacher.npz``.
@@ -17,19 +18,32 @@ recorded):
    Recall/NDCG on the held-out split (the Bayes ceiling), and the plug-in
    skyline's.
 4. train    -- ``train-model --prepared-dir`` (execution rung chosen by
-   ``--exec auto``) from scratch.
+   ``--exec auto``) from scratch; its launches, its skipped async saves,
+   its durable steps and any end-of-fit backstop are reported.
 5. evaluate -- ``evaluate-model`` exact metrics on the same split.
 6. report   -- student/teacher and student/plug-in ratio per metric, as
    JSON to ``--out`` (default ``<work-dir>/oracle_parity_<scale>.json``).
 
 ``--device`` goes to every stage that takes one. ``run_pipeline`` takes a
-``runner``: ``in_process_runner`` runs the stages in the caller's process.
+``runner``: ``in_process_runner`` runs the stages in the caller's process,
+``CountingRunner(other=...)`` the train stage in process and the others
+through ``other``. ``--seeds N ...`` trains and evaluates one more student per seed
+(``training.seed=N``) on the same artifact, through the train and evaluate
+stages' own argv, without generating, preparing or scoring the ceiling again.
+
+Config 3 at full depth (on the card; about 40 minutes, prepare-data's 50M
+rows most of it)::
+
+    python -m twotower_tpu_torch.tools.oracle_parity --scale config3 \
+        --rows-cap 1000000 --seeds 1
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import logging
 import subprocess
 import sys
 import time
@@ -110,6 +124,61 @@ def in_process_runner(module: str, argv: list[str]) -> str:
     return out.getvalue()
 
 
+class _SkipsKept(logging.Handler):
+    def __init__(self, into: list):
+        super().__init__(logging.INFO)
+        self.into = into
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if "skipping step" in str(record.msg):
+            self.into.append(record.getMessage())
+
+
+class CountingRunner:
+    """Runs the train stage in this process, with the fused-loss kernels'
+    launch counts set to 0 just before it and read just after
+    (``launches``) and the checkpoint manager's skip messages kept
+    (``skipped_saves``); every other stage through ``other``."""
+
+    def __init__(self, other=subprocess_runner):
+        self.other = other
+        self.launches: dict[str, int] = {}
+        self.skipped_saves: list[str] = []
+
+    def __call__(self, module: str, argv: list[str]) -> str:
+        if not module.endswith(".train"):
+            return self.other(module, argv)
+        from twotower_tpu_torch.ops import kernels
+
+        skips: list[str] = []
+        handler = _SkipsKept(skips)
+        log = logging.getLogger("twotower_tpu_torch.utils.checkpoint")
+        log.addHandler(handler)
+        kernels.reset_launch_counts()
+        try:
+            out = in_process_runner(module, argv)
+        finally:
+            log.removeHandler(handler)
+        self.launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+        self.skipped_saves = skips
+        return out
+
+
+def teacher_digest(npz_path: str | Path) -> str:
+    """sha256 over the teacher's drawn arrays, in order: ``u_lat``,
+    ``c_lat``, ``item_cluster``, ``log_pop`` (each's dtype, shape and
+    bytes)."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    with np.load(npz_path) as z:
+        for key in ("u_lat", "c_lat", "item_cluster", "log_pop"):
+            a = np.ascontiguousarray(z[key])
+            h.update(f"{key}:{a.dtype.str}:{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
 def last_json_line(out: str) -> dict:
     for line in reversed(out.strip().splitlines()):
         line = line.strip()
@@ -118,11 +187,17 @@ def last_json_line(out: str) -> dict:
     raise ValueError("no JSON line in stage output")
 
 
-def stage_commands(scale: str, work: Path, *, device: str, epochs: int | None = None,
-                   rows_cap: int | None = None, val_rows: int = 200_000) -> list[tuple]:
-    """``(stage, module, argv)`` of the five stages, in order."""
-    s = SCALES[scale]
-    gen, prep, ckpt = work / "gen", work / "prepared", work / "ckpt"
+def stage_commands(scale: str | dict, work: Path, *, device: str, epochs: int | None = None,
+                   rows_cap: int | None = None, val_rows: int = 200_000,
+                   seed: int | None = None) -> list[tuple]:
+    """``(stage, module, argv)`` of the five stages, in order, for a preset's
+    name or a preset (``SCALES``' form). ``seed``: the student's
+    ``training.seed`` (train and evaluate), checkpoints in
+    ``ckpt_seed<seed>``."""
+    s = SCALES[scale] if isinstance(scale, str) else scale
+    gen, prep = work / "gen", work / "prepared"
+    ckpt = work / ("ckpt" if seed is None else f"ckpt_seed{seed}")
+    student = [*s["model"], *([] if seed is None else [f"training.seed={seed}"])]
     cap = ["--rows", str(rows_cap)] if rows_cap else []
     dev = ["--device", device]
     return [
@@ -140,44 +215,39 @@ def stage_commands(scale: str, work: Path, *, device: str, epochs: int | None = 
         ("train", "twotower_tpu_torch.training.train", [
             "--prepared-dir", str(prep), "--checkpoint-dir", str(ckpt),
             "--val-rows", str(val_rows), *dev,
-            "--override", f"training.epochs={epochs or s['epochs']}", *s["model"]]),
+            "--override", f"training.epochs={epochs or s['epochs']}", *student]),
         ("evaluate", "twotower_tpu_torch.evaluation.evaluate", [
             "--prepared-dir", str(prep), "--checkpoint-dir", str(ckpt),
-            "--subset", "test", *dev, *cap, "--override", *s["model"]]),
+            "--subset", "test", *dev, *cap, "--override", *student]),
     ]
 
 
-def run_pipeline(scale: str, work: Path, *, device: str, runner=subprocess_runner,
-                 epochs: int | None = None, rows_cap: int | None = None,
-                 val_rows: int = 200_000) -> dict:
-    """The five stages through ``runner(module, argv) -> stdout``, then the
-    report: the generator's and the artifact's stats, the ceiling, the train
-    summary's fields, the student's metrics, ``ceiling_fraction`` and
-    ``plugin_fraction`` per metric, and each stage's seconds."""
-    work.mkdir(parents=True, exist_ok=True)
-    results: dict = {"scale": scale, "work_dir": str(work), "device": device, "stages": {}}
-    outputs = {}
-    for name, module, argv in stage_commands(scale, work, device=device, epochs=epochs,
-                                             rows_cap=rows_cap, val_rows=val_rows):
-        print(f"=== {name}: {module} {' '.join(argv)}", flush=True)
-        t0 = time.perf_counter()
-        outputs[name] = runner(module, argv)
-        dt = time.perf_counter() - t0
-        results["stages"][name] = {"seconds": dt}
-        print(f"=== {name}: done in {dt:.1f}s", flush=True)
+def student_report(train_out: str, eval_out: str, ckpt: Path, ceiling: dict, runner) -> dict:
+    """One student's report: the train summary's fields, its steps and
+    durable checkpoints, the step ``best_step()`` names and the one
+    evaluate-model restored, its metrics and their fractions of the
+    ceiling's and the plug-in's."""
+    from twotower_tpu_torch.utils.checkpoint import CheckpointManager
 
-    ceiling = last_json_line(outputs["ceiling"])
-    train = last_json_line(outputs["train"])
-    student = last_json_line(outputs["evaluate"])
-    results["generator"] = last_json_line(outputs["generate"])
-    results["artifact"] = last_json_line(outputs["prepare"])
-    results["ceiling"] = ceiling
-    results["train"] = {
-        k: train.get(k)
-        for k in ("best_val_metric", "best_step", "epochs_run",
-                  "steady_examples_per_sec", "train_examples_per_sec", "execution_rung")
-    }
-    results["student"] = student
+    train = last_json_line(train_out)
+    student = last_json_line(eval_out)
+    manager = CheckpointManager(ckpt)
+    epochs = [r for r in map(json.loads, (ckpt / "metrics.jsonl").read_text().splitlines())
+              if "epoch" in r]
+    durable = {s: json.loads((ckpt / f"step_{s:010d}" / "meta.json").read_text())
+               for s in manager.all_steps()}
+    facts = {k: train.get(k) for k in (
+        "best_val_metric", "best_step", "epochs_run", "steady_examples_per_sec",
+        "train_examples_per_sec", "execution_rung")}
+    facts.update(
+        steps=int(epochs[-1]["step"]),
+        val_recall_at_10=[r.get("val/recall@10") for r in epochs],
+        durable_steps=sorted(durable),
+        backstop_steps=[s for s, m in durable.items() if m.get("post_starvation_final")],
+        restorable_best_step=manager.best_step(),
+    )
+    if isinstance(runner, CountingRunner):
+        facts.update(launches=runner.launches, skipped_saves=runner.skipped_saves)
     plug = ceiling.get("plugin_metrics") or {}
     ratios, plugin_ratios = {}, {}
     for k, ceil_v in ceiling["metrics"].items():
@@ -186,9 +256,57 @@ def run_pipeline(scale: str, work: Path, *, device: str, runner=subprocess_runne
             ratios[k] = stu_v / ceil_v
         if stu_v is not None and plug.get(k, 0) > 0:
             plugin_ratios[k] = stu_v / plug[k]
-    results["ceiling_fraction"] = ratios
-    results["plugin_fraction"] = plugin_ratios
+    return {"train": facts, "student": student, "ceiling_fraction": ratios,
+            "plugin_fraction": plugin_ratios}
+
+
+def _timed(name: str, runner, module: str, argv: list[str], into: dict,
+           label: str = "") -> str:
+    print(f"=== {name}{label}: {module} {' '.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    out = runner(module, argv)
+    into[name] = {"seconds": time.perf_counter() - t0}
+    print(f"=== {name}{label}: done in {into[name]['seconds']:.1f}s", flush=True)
+    return out
+
+
+def run_pipeline(scale: str, work: Path, *, device: str, runner=subprocess_runner,
+                 epochs: int | None = None, rows_cap: int | None = None,
+                 val_rows: int = 200_000, seeds: tuple[int, ...] = (),
+                 out: Path | None = None) -> dict:
+    """The five stages through ``runner(module, argv) -> stdout``, then the
+    report: the generator's and the artifact's stats, the teacher's digest,
+    the ceiling, the student's train facts and metrics (``student_report``),
+    ``ceiling_fraction`` and ``plugin_fraction`` per metric, and each
+    stage's seconds; under ``seeds``, the same for one more student per
+    seed, trained and evaluated on the same artifact. ``out``: where the
+    report is written, after the five stages and after each seed."""
+    work.mkdir(parents=True, exist_ok=True)
+    results: dict = {"scale": scale, "work_dir": str(work), "device": device, "stages": {}}
+    kw = dict(device=device, epochs=epochs, rows_cap=rows_cap, val_rows=val_rows)
+    outputs = {name: _timed(name, runner, module, argv, results["stages"])
+               for name, module, argv in stage_commands(scale, work, **kw)}
+    results["generator"] = last_json_line(outputs["generate"])
+    results["artifact"] = last_json_line(outputs["prepare"])
+    results["teacher_sha256"] = teacher_digest(work / "gen" / "oracle_teacher.npz")
+    results["ceiling"] = ceiling = last_json_line(outputs["ceiling"])
+    results.update(student_report(outputs["train"], outputs["evaluate"], work / "ckpt",
+                                  ceiling, runner))
     results["total_seconds"] = sum(v["seconds"] for v in results["stages"].values())
+    results["seeds"] = {}
+    if out is not None:
+        out.write_text(json.dumps(results, indent=2))
+    for seed in seeds:
+        stages: dict = {}
+        outs = {name: _timed(name, runner, module, argv, stages, f" (seed {seed})")
+                for name, module, argv in stage_commands(scale, work, seed=seed, **kw)
+                if name in ("train", "evaluate")}
+        results["seeds"][str(seed)] = {
+            "stages": stages,
+            **student_report(outs["train"], outs["evaluate"], work / f"ckpt_seed{seed}", ceiling,
+                             runner)}
+        if out is not None:
+            out.write_text(json.dumps(results, indent=2))
     return results
 
 
@@ -208,14 +326,17 @@ def main(argv: list[str] | None = None) -> int:
                     help="cap ceiling/eval rows (strided) at huge scales")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--val-rows", type=int, default=200_000)
+    ap.add_argument("--seeds", type=int, nargs="*", default=[],
+                    help="train and evaluate one more student per seed on the same artifact")
     args = ap.parse_args(argv)
     resolve_device(args.device)  # no GPU: raise before any work
     work = Path(args.work_dir or REPO / "build" / f"oracle_{args.scale}")
-    results = run_pipeline(args.scale, work, device=args.device, epochs=args.epochs,
-                           rows_cap=args.rows_cap, val_rows=args.val_rows)
     out = Path(args.out) if args.out else work / f"oracle_parity_{args.scale}.json"
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(results, indent=2))
+    results = run_pipeline(args.scale, work, device=args.device, epochs=args.epochs,
+                           rows_cap=args.rows_cap, val_rows=args.val_rows,
+                           runner=CountingRunner(),
+                           seeds=tuple(args.seeds), out=out)
     plug = results["ceiling"].get("plugin_metrics") or {}
     print(json.dumps({
         "scale": args.scale,
@@ -225,6 +346,8 @@ def main(argv: list[str] | None = None) -> int:
         "fraction_recall@10": results["ceiling_fraction"].get("recall@10"),
         "fraction_ndcg@10": results["ceiling_fraction"].get("ndcg@10"),
         "plugin_fraction_recall@10": results["plugin_fraction"].get("recall@10"),
+        "seeds_fraction_recall@10": {k: v["ceiling_fraction"].get("recall@10")
+                                     for k, v in results["seeds"].items()},
         "out": str(out),
     }))
     return 0
