@@ -387,3 +387,54 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [x for v in tree for x in _leaves(v)]
     return [tree] if isinstance(tree, np.ndarray) else []
+
+
+@pytest.mark.cuda
+def test_phases_graph_keeps_the_step_and_times_its_phases(cuda_device):
+    """The sparse step captured twice, the second graph with its phases'
+    timing events and replayed once in ``PHASE_EVERY``, trains as the step
+    captured once (dropout on, so the two graphs must draw the masks of one
+    sequence, and share one memory pool): metrics rtol 1e-4, state rtol 1e-4
+    / atol 1e-5; every kernel launches once a step; each phase reads a
+    positive time."""
+    from twotower_tpu_torch import bridge
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training.device_loop import (
+        PHASE_EVERY,
+        DeviceDataset,
+        make_epoch_fn,
+    )
+    from twotower_tpu_torch.utils.profiling import STEP_PHASES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config().with_overrides(
+        {"model.embedding_dim": 32, "model.user_tower_dims": [64, 32],
+         "model.item_tower_dims": [64, 32], "model.compute_dtype": "float32",
+         "model.dropout_rate": 0.1, "training.batch_size": 256})
+    steps = 2 * PHASE_EVERY + 10
+    start = bridge.state_to_numpy(
+        init_train_state(cfg, make_optimizer(cfg.training), 1000, 500, device="cpu"))
+    rng = np.random.default_rng(0)
+    users, items = rng.integers(0, 1000, 256 * steps), rng.integers(0, 500, 256 * steps)
+    out = {}
+    for timed in (True, False):
+        state = bridge.state_from_numpy(start, device=cuda_device)
+        ds = DeviceDataset(users, items, 256, device=cuda_device)
+        fn = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, device=cuda_device)
+        if not timed:
+            fn._phases = None
+        kernels.reset_launch_counts()
+        state, m = fn(state, ds.columns, 0)
+        out[timed] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
+                      [w.launches for w in kernels.WRAPPERS], fn.phase_ms())
+        if timed:
+            assert fn._phases.replays == 3  # replays 0, 64 and 128 of 128 + 8
+            assert fn._timed[0].pool() == fn._graph.pool()  # one set of intermediates
+    assert out[True][2] == out[False][2] == [steps] * 3
+    assert sorted(out[True][3]) == sorted(STEP_PHASES) and min(out[True][3].values()) > 0
+    assert out[False][3] == {}
+    for k, v in out[False][0].items():
+        np.testing.assert_allclose(out[True][0][k], v, rtol=1e-4, err_msg=k)
+    for part in ("params", "opt_state", "table_state"):
+        for x, y in zip(_leaves(out[True][1][part]), _leaves(out[False][1][part])):
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-5, err_msg=part)

@@ -36,6 +36,7 @@ import numpy as np
 
 from twotower_tpu_torch.config import Config, load_config_for_checkpoint, parse_cli_overrides
 from twotower_tpu_torch.logging_utils import get_logger, setup_logging
+from twotower_tpu_torch.utils import profiling
 
 logger = get_logger(__name__)
 
@@ -539,6 +540,16 @@ class MicroBatcher:
     queued. A lone request dispatches immediately; under load, requests
     arriving during the in-flight device call accumulate and the next group
     coalesces them.
+
+    Traced (``utils/profiling.py``), each group draws an id and records the
+    spans ``batcher.collect`` (assembling it, the window's wait included),
+    ``batcher.device_call`` (on the event loop, from the dispatch to the
+    worker's return from the executor: the profiler's timeline names the
+    device's idle while the loop waits on the executor's launches) and
+    ``batcher.scatter`` (setting its waiters' results); at its dispatch the
+    marks ``batcher.queue_wait`` (a request's, from ``submit`` to the
+    dispatch; its parent is the group) and ``batcher.dispatch_gap`` (from the
+    previous device call's return in the executor thread).
     """
 
     def __init__(
@@ -554,17 +565,20 @@ class MicroBatcher:
         self.pad_width = pad_width  # fixed trailing dim for 2-D queries
         self.query_dtype = query_dtype
         self.batches = 0  # device calls issued (observability)
+        self._returned_ns: int | None = None  # the last device call's return, traced
         self._queue: asyncio.Queue | None = None
         self._worker: asyncio.Task | None = None
 
-    async def submit(self, queries: np.ndarray, k: int, index=None):
+    async def submit(self, queries: np.ndarray, k: int, index=None, *,
+                     request: int | None = None):
         """Coalesced equivalent of ``index.<method>(queries, k)``.
 
         ``index``: the model snapshot the request was VALIDATED against
         (defaults to the batcher's current index). Requests pinned to
         different index objects are never coalesced into one device call,
         so a hot reload mid-window cannot score a request on a model it did
-        not validate against."""
+        not validate against. ``request``: the id its queue-wait mark
+        carries."""
         if self.pad_width is not None:
             q = np.full(
                 (len(queries), self.pad_width), self.pad_value, self.query_dtype
@@ -576,7 +590,8 @@ class MicroBatcher:
             self._queue = asyncio.Queue()
             self._worker = loop.create_task(self._run(self._queue))
         fut: asyncio.Future = loop.create_future()
-        self._queue.put_nowait((queries, k, fut, index or self.index))
+        put_ns = time.perf_counter_ns() if profiling.tracing() else 0
+        self._queue.put_nowait((queries, k, fut, index or self.index, request, put_ns))
         return await fut
 
     async def recommend(self, user_idx: np.ndarray, k: int, index=None):
@@ -603,6 +618,7 @@ class MicroBatcher:
             queries = np.concatenate([queries, filler])
         target = index if index is not None else self.index
         scores, items = getattr(target, self.method)(queries, k)
+        self._returned_ns = time.perf_counter_ns() if profiling.tracing() else None
         return scores[:n], items[:n]
 
     def warmup(self, k: int, index=None, *, extra_ks: tuple = ()) -> int:
@@ -632,6 +648,14 @@ class MicroBatcher:
                 )
         return len(sizes) * len(ks)
 
+    def _trace_dispatch(self, group: list, gid: int) -> None:
+        """The marks of a group at its dispatch."""
+        now = time.perf_counter_ns()
+        for *_, request, put_ns in group:
+            profiling.mark("batcher.queue_wait", put_ns, now, request=request, parent=gid)
+        if self._returned_ns is not None:
+            profiling.mark("batcher.dispatch_gap", self._returned_ns, now, request=gid)
+
     async def _run(self, queue: asyncio.Queue):
         # ``queue`` is this worker's own (submit() may install a fresh one
         # for a replacement worker; the shutdown drain must not touch it).
@@ -643,47 +667,55 @@ class MicroBatcher:
                 first = carry if carry is not None else await queue.get()
                 carry = None
                 group = [first]
-                total = len(first[0])
-                group_index = first[3]
-                # Adaptive window: a lone request (empty queue) dispatches
-                # immediately; under load, arrivals during the device call
-                # queue up and the next group coalesces them.
-                deadline = (
-                    loop.time() + self.window_s if not queue.empty() else loop.time()
-                )
-                while total < self.max_batch:
-                    timeout = deadline - loop.time()
-                    if timeout <= 0:
-                        break
-                    try:
-                        nxt = await asyncio.wait_for(queue.get(), timeout)
-                    except asyncio.TimeoutError:
-                        break
-                    if total + len(nxt[0]) > self.max_batch or nxt[3] is not group_index:
-                        # Would exceed max_batch (an unwarmed bucket) OR was
-                        # validated against another model snapshot (hot
-                        # reload mid-window): it starts the next group.
-                        carry = nxt
-                        break
-                    group.append(nxt)
-                    total += len(nxt[0])
+                gid = profiling.new_id()
                 try:
-                    queries = np.concatenate([g[0] for g in group])
-                    kmax = max(g[1] for g in group)
-                    scores, items = await loop.run_in_executor(
-                        None, self._device_call, queries, kmax, group_index
-                    )
+                    with profiling.span("batcher.collect", request=gid):
+                        total = len(first[0])
+                        group_index = first[3]
+                        # Adaptive window: a lone request (empty queue)
+                        # dispatches immediately; under load, arrivals during
+                        # the device call queue up and the next group
+                        # coalesces them.
+                        deadline = (
+                            loop.time() + self.window_s if not queue.empty() else loop.time()
+                        )
+                        while total < self.max_batch:
+                            timeout = deadline - loop.time()
+                            if timeout <= 0:
+                                break
+                            try:
+                                nxt = await asyncio.wait_for(queue.get(), timeout)
+                            except asyncio.TimeoutError:
+                                break
+                            if total + len(nxt[0]) > self.max_batch or nxt[3] is not group_index:
+                                # Would exceed max_batch (an unwarmed bucket) OR
+                                # was validated against another model snapshot
+                                # (hot reload mid-window): it starts the next
+                                # group.
+                                carry = nxt
+                                break
+                            group.append(nxt)
+                            total += len(nxt[0])
+                        queries = np.concatenate([g[0] for g in group])
+                        kmax = max(g[1] for g in group)
+                    if profiling.tracing():  # outside the span: the marks' own cost
+                        self._trace_dispatch(group, gid)
+                    with profiling.span("batcher.device_call", request=gid):
+                        scores, items = await loop.run_in_executor(
+                            None, self._device_call, queries, kmax, group_index
+                        )
                     self.batches += 1
-                    off = 0
-                    for q, k, fut, _ in group:
-                        n = len(q)
-                        if not fut.done():
-                            fut.set_result(
-                                (scores[off : off + n, :k], items[off : off + n, :k])
-                            )
-                        off += n
+                    with profiling.span("batcher.scatter", request=gid):
+                        off = 0
+                        for q, k, fut, *_ in group:
+                            n = len(q)
+                            if not fut.done():
+                                fut.set_result(
+                                    (scores[off : off + n, :k], items[off : off + n, :k])
+                                )
+                            off += n
                 except Exception as e:  # propagate to every waiter, keep serving
-                    for _, _, fut, _ in group:
+                    for _, _, fut, *_ in group:
                         if not fut.done():
                             fut.set_exception(e)
         finally:
@@ -693,7 +725,7 @@ class MicroBatcher:
             leftovers = list(group) + ([carry] if carry is not None else [])
             while not queue.empty():
                 leftovers.append(queue.get_nowait())
-            for _, _, fut, _ in leftovers:
+            for _, _, fut, *_ in leftovers:
                 if not fut.done():
                     fut.set_exception(RuntimeError("serving batcher stopped"))
 
@@ -738,18 +770,24 @@ class CoalescedRoutes:
         )
 
     async def recommend(self, payload) -> dict[str, Any]:
+        """POST /recommend, coalesced. Traced, the request's id is carried
+        by its spans ``serve.prepare``, ``serve.filter`` and
+        ``serve.format`` and by its queue-wait mark."""
         service = self.service
-        user_idx, k, exclude, snap = service.prepare_recommend(payload)
+        request = profiling.new_id()
+        with profiling.span("serve.prepare", request=request):
+            user_idx, k, exclude, snap = service.prepare_recommend(payload)
+            depth = service.search_depth(k, len(exclude), snap.index.num_items)
         t0 = time.perf_counter()
         # Pinned to the snapshot's index: a reload finishing mid-window must
         # not score this request on a model it did not validate against.
         scores, items = await self.batchers["recommend"].submit(
-            user_idx, service.search_depth(k, len(exclude), snap.index.num_items),
-            index=snap.index,
-        )
-        scores, items = service.filter_excluded(scores, items, exclude, k)
+            user_idx, depth, index=snap.index, request=request)
+        with profiling.span("serve.filter", request=request):
+            scores, items = service.filter_excluded(scores, items, exclude, k)
         latency_ms = (time.perf_counter() - t0) * 1000
-        return service.format_recommend(user_idx, scores, items, k, latency_ms, snap.vocab)
+        with profiling.span("serve.format", request=request):
+            return service.format_recommend(user_idx, scores, items, k, latency_ms, snap.vocab)
 
     async def similar_items(self, payload) -> dict[str, Any]:
         idx, k, snap = self.service.prepare_similar(payload)

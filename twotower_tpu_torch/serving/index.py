@@ -52,6 +52,7 @@ from twotower_tpu_torch.ops.topk import (
     topk_mips_sharded,
     topk_mips_twopass,
 )
+from twotower_tpu_torch.utils import profiling
 from twotower_tpu_torch.utils.platform import resolve_device
 
 logger = get_logger(__name__)
@@ -247,11 +248,23 @@ class RetrievalIndex:
 
     @torch.no_grad()
     def recommend(self, user_idx: np.ndarray, k: int = 100) -> tuple[np.ndarray, np.ndarray]:
-        """Top-k items for known users: (scores [B,k], item_idx [B,k])."""
-        user_idx = np.atleast_1d(np.asarray(user_idx, np.int64))
-        if (user_idx < 0).any() or (user_idx >= self.num_users).any():
-            raise ValueError("user_idx out of range")
-        return self._host(*self._search(self._user_embeddings(self._tensor(user_idx)), k))
+        """Top-k items for known users: (scores [B,k], item_idx [B,k]).
+
+        Traced (``utils/profiling.py``), four spans tile the call:
+        ``index.h2d`` (the ids checked and copied to the device),
+        ``index.user_tower`` and ``index.search`` (their launches) and
+        ``index.d2h`` (the wait for the device and the copy back)."""
+        with profiling.span("index.h2d"):
+            user_idx = np.atleast_1d(np.asarray(user_idx, np.int64))
+            if (user_idx < 0).any() or (user_idx >= self.num_users).any():
+                raise ValueError("user_idx out of range")
+            ids = self._tensor(user_idx)
+        with profiling.span("index.user_tower"):
+            emb = self._user_embeddings(ids)
+        with profiling.span("index.search"):
+            found = self._search(emb, k)
+        with profiling.span("index.d2h"):
+            return self._host(*found)
 
     @torch.no_grad()
     def recommend_by_history(

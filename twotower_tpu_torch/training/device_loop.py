@@ -23,6 +23,14 @@ the steps). The port keeps its pieces:
   optimizer, the row updates, the metric sums and the counters): it is captured once,
   after warm-up steps that are the first real steps of the first epoch, and
   replayed once a step. On the CPU the same step runs eagerly.
+  The sparse step is also captured a second time, into the first graph's
+  memory pool, with timing events at its five phases' boundaries
+  (``utils.profiling.StepPhases``: gather, forward, backward, optimizer,
+  rows); that graph takes the step's place once every ``PHASE_EVERY``
+  replays, never while the profiler traces. ``phase_ms`` reads its last
+  replay and ``DeviceTrainer`` writes that into each epoch's record as
+  ``step/<phase>_ms``. The dense step and the mesh step mark no phases
+  (their epochs record none).
 - ``DeviceTrainer``: the epoch-granular host loop (validation, early
   stopping, checkpoints on improvement, preemption), as ``Trainer``'s.
 
@@ -32,6 +40,7 @@ step or to the host loop.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import replace
 from typing import Any
@@ -54,6 +63,7 @@ from twotower_tpu_torch.training.state import (
     opt_slots,
     tree_leaves,
 )
+from twotower_tpu_torch.utils import profiling
 from twotower_tpu_torch.utils.platform import resolve_device
 
 logger = get_logger(__name__)
@@ -62,6 +72,9 @@ logger = get_logger(__name__)
 # cuBLAS workspace, the kernels' libraries and scratch sizes and the
 # allocator's blocks exist before the graph records the step.
 WARMUP_STEPS = 2
+# The phases' graph replays once in this many: its six event nodes cost
+# about 0.7% of a config-3 replay on an H100, which every replay would pay.
+PHASE_EVERY = 64
 
 
 class DeviceDataset:
@@ -148,9 +161,15 @@ class _EpochProgram:
         self._args: tuple | None = None
         self._done = 0
         self._stream = torch.cuda.Stream(dev) if capture else None
+        # The phases' events, recorded by the graph of a step that marks them.
+        self._phases = (profiling.StepPhases()
+                        if capture and getattr(self._step, "marks_phases", False) else None)
+        self._timed = None  # (graph, launch record) of the step with the phases' events
+        self._replays = 0
 
     def _body(self, state: TrainState, columns: dict, log_q, item_tokens) -> None:
         """One step, every value it reads and writes on the device."""
+        profiling.step_phase("gather")
         sel = self._perm.view(self.num_steps, self.batch_size).index_select(0, self._row)
         sel = sel.view(-1)
         if self.mesh is not None:  # this rank's data shard of the step's rows
@@ -164,6 +183,7 @@ class _EpochProgram:
         for k, v in metrics.items():
             self._sums[k].add_(v)
         self._row.add_(1)
+        profiling.step_phase("end")
 
     def begin_epoch(self, state: TrainState, columns: dict, epoch: int, log_q=None,
                     item_tokens=None, *, perm=None) -> None:
@@ -192,8 +212,6 @@ class _EpochProgram:
     def step(self) -> None:
         """The epoch's next step: eager on the CPU (or with ``capture``
         off); on CUDA a warm-up step, the capture, or a replay."""
-        from twotower_tpu_torch.ops import kernels
-
         if self._done >= self.num_steps:
             raise RuntimeError(f"the epoch's {self.num_steps} steps have all run")
         self._done += 1
@@ -209,16 +227,49 @@ class _EpochProgram:
                 current.wait_stream(self._stream)
                 self._warm += 1
                 return
-            graph = torch.cuda.CUDAGraph()
-            graph.register_generator_state(self._gen)
-            if hasattr(self._step, "dropout_gen"):  # a mesh step's own masks
-                graph.register_generator_state(self._step.dropout_gen)
-            with kernels.record_launches() as record:
-                with torch.cuda.graph(graph, stream=self._stream):
-                    self._body(*self._args)
-            self._graph, self._record = graph, record
-        self._graph.replay()
-        self._record.replayed()
+            self._graph, self._record = self._capture()
+            if self._phases is not None:
+                # In the step graph's pool: the two graphs never replay at
+                # once, and what either keeps (state, sums, row) lives
+                # outside it, so they share one set of intermediates.
+                self._timed = self._capture(self._phases, pool=self._graph.pool())
+                profiling.register_phases(self._phases)
+        graph, record = self._graph, self._record
+        if self._times_phases():
+            graph, record = self._timed
+            self._phases.replays += 1
+        self._replays += 1
+        graph.replay()
+        record.replayed()
+
+    def _capture(self, phases=None, pool=None):
+        """The step as a CUDA graph (with ``phases``: recording their
+        events; with ``pool``: allocating from that graph pool) and the
+        record of the kernels' launches in it."""
+        from twotower_tpu_torch.ops import kernels
+
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        if hasattr(self._step, "dropout_gen"):  # a mesh step's own masks
+            graph.register_generator_state(self._step.dropout_gen)
+        marks = contextlib.nullcontext() if phases is None else phases.capturing()
+        with kernels.record_launches() as record, marks:
+            with torch.cuda.graph(graph, pool=pool, stream=self._stream):
+                self._body(*self._args)
+        return graph, record
+
+    def _times_phases(self) -> bool:
+        """Whether this replay is the phases' graph's: the first and every
+        ``PHASE_EVERY``-th, except while the profiler traces (its cost a
+        kernel would enter every phase)."""
+        return (self._timed is not None and self._replays % PHASE_EVERY == 0
+                and not profiling.tracing())
+
+    def phase_ms(self) -> dict[str, float]:
+        """Each phase's device milliseconds in the phases' graph's last
+        replay (waits for it): empty on the CPU, before that graph's first
+        replay, and for a step that marks no phases."""
+        return {} if self._phases is None else self._phases.times_ms()
 
     def end_epoch(self):
         """``(new_state, {metric: mean over the epoch's steps})`` once every
@@ -370,6 +421,7 @@ class DeviceTrainer:
             train_time += epoch_time
             eps = dataset.num_examples / max(epoch_time, 1e-9)
             record = {"epoch": float(epoch), "examples_per_sec": eps, **host}
+            record.update({f"step/{k}_ms": v for k, v in epoch_fn.phase_ms().items()})
 
             if self.evaluate_fn is not None and (epoch + 1) % cfg.validation_freq == 0:
                 val = self.evaluate_fn(state.params)

@@ -30,6 +30,7 @@ from twotower_tpu_torch.training.state import (
     tree_leaves,
     tree_map,
 )
+from twotower_tpu_torch.utils.profiling import step_phase
 
 TABLE_NAMES = ("user_embedding", "item_embedding", "text_embedding")
 
@@ -197,6 +198,13 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
     go to the lazy-Adam update of ``text_embedding`` (JAX
     ``sparse.py:231-261,318-327``). The PAD row 0 gets a zero gradient but
     counts as touched, as in the JAX step.
+
+    The step marks the boundaries of its phases (``utils.profiling.
+    step_phase``): ``forward`` after the rows' gather, ``backward`` before
+    ``autograd.grad``, ``optimizer`` before the dense update, ``rows``
+    before the row updates. They record timing events only where the device
+    loop captures the step (``step.marks_phases``); elsewhere they do
+    nothing.
     """
     from twotower_tpu_torch.models import two_tower
     from twotower_tpu_torch.ops.dispatch import in_batch_softmax_loss_auto
@@ -241,6 +249,7 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
                 neg_tokens = item_tokens[neg_ids]
                 neg_tok_rows = rows["neg_text"] = (
                     tables["text_embedding"][neg_tokens].requires_grad_())
+        step_phase("forward")
         with torch.enable_grad():
             u_emb = two_tower.apply_user_tower(
                 diff, u_rows, mcfg, train=True, dropout_gen=rng
@@ -279,7 +288,9 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
                 reg = l2_penalty(diff, [u_rows, i_rows])
                 loss = loss + mcfg.l2_regularization * reg
             leaves = tree_leaves(diff)
+            step_phase("backward")
             grads = torch.autograd.grad(loss, [*leaves, *rows.values()])
+        step_phase("optimizer")
         dense_grads = list(grads[: len(leaves)])
         row_grad = dict(zip(rows, grads[len(leaves):]))
         if clock is None:
@@ -290,6 +301,7 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
         new_opt = dense_optimizer.update_(
             dense, dense_grads, state.opt_state, clock=clock, lr=None if clock is None else lr
         )
+        step_phase("rows")
 
         i_grad = row_grad["item"]
         if sample_negs:
@@ -332,4 +344,5 @@ def make_sparse_step_fn(config, dense_optimizer, *, num_items: int | None = None
         )
         return new_state, metrics
 
+    step.marks_phases = True
     return step

@@ -1,10 +1,25 @@
 """Tracing/profiling + failure-handling utilities (PyTorch).
 
-The port's copy of ``twotower_tpu/utils/profiling.py``:
+The port's copy of ``twotower_tpu/utils/profiling.py``, with the port's own
+spans and marks:
 
 - ``trace(logdir)``: a ``torch.profiler`` trace (host ops and, on a GPU,
   CUDA kernels) over a code region, written as a Chrome trace into
-  ``logdir``.
+  ``logdir``, with the spans and marks recorded in the region.
+- Spans and marks (``span``, ``mark``), recorded only while tracing is
+  on: inside ``trace(logdir)`` and whenever any ``torch.profiler`` records
+  (torch's own process-wide flag, read on every call; there is no other
+  switch). A span that is off returns one shared no-op object and makes no
+  torch call. A span that is on opens a profiler range of its name
+  (torch's C++ ``RecordFunction``, or ``torch.profiler.record_function``
+  where torch lacks it), so that the profiler's timeline, and the device's
+  idle gaps in it, carry the name on the thread the profiler watches (the
+  one that started it), and appends a ``Record`` to a bounded in-memory
+  buffer (``RECORD_LIMIT``; what does not fit is counted as dropped). Garbage collections are spans too
+  (``gc.gen<N>``). ``snapshot()`` reads the buffer, ``reset()`` clears it.
+- ``StepPhases``: CUDA timing events at the phase boundaries of a train
+  step captured as a CUDA graph (``step_phase``), replayed with that graph;
+  read as milliseconds of its last replay, also in ``snapshot()``.
 - ``StepTimer``: lightweight host-side step timing with percentile summary,
   cheap enough to leave on in production loops.
 - ``GracefulShutdown``: SIGTERM/SIGINT handler for preemption-aware training
@@ -14,25 +29,281 @@ The port's copy of ``twotower_tpu/utils/profiling.py``:
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
+import gc
+import itertools
+import json
 import signal
+import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
+import torch
+import torch.profiler
+from torch.autograd import profiler as _autograd_profiler
 
 from twotower_tpu_torch.logging_utils import get_logger
 
 logger = get_logger(__name__)
 
+RECORD_LIMIT = 1 << 20  # records kept before dropping
+STEP_PHASES = ("gather", "forward", "backward", "optimizer", "rows")
+_ANCHOR = "profiling.clock_anchor"
+
+
+class Record(NamedTuple):
+    """One span or mark. Times are ``time.perf_counter_ns()``; ``thread``
+    is the OS thread id (the profiler's ``tid``). ``parent`` of a span is
+    the innermost span open in the same thread or asyncio task when it
+    opened; a mark's is what its caller passes. ``request`` is the request
+    or group id the caller passes."""
+
+    name: str
+    id: int
+    parent: int | None
+    request: int | None
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+class Recorder:
+    """The buffer behind ``span`` and ``mark``, and the step's phase events
+    (``register_phases``). Ids (``new_id``) are unique in the process:
+    spans', marks', requests' and groups' alike.
+
+    It takes no lock: the collector's callback adds a record from inside
+    whatever code the collection interrupted, on that code's thread, so a
+    lock held there would never be released. ``list.append`` and the list's
+    copy hold under the interpreter lock; the limit may be passed by a
+    record or two."""
+
+    def __init__(self, limit: int = RECORD_LIMIT):
+        self.limit = limit
+        self.phases: StepPhases | None = None
+        self._ids = itertools.count(1)
+        self.reset()
+
+    def reset(self) -> None:
+        """Clear the records (the phase events stay: the graph that records
+        them still replays)."""
+        self._rows: list[tuple] = []
+        self.dropped = 0
+
+    def new_id(self) -> int:
+        return next(self._ids)
+
+    def add(self, *fields) -> None:
+        """Keep one record, given as ``Record``'s fields in order."""
+        if len(self._rows) < self.limit:
+            self._rows.append(fields)
+        else:
+            self.dropped += 1
+
+    def snapshot(self) -> dict:
+        """``records`` (``Record``s) and ``dropped`` as they stand, and
+        ``phases_ms``: the registered step's phases in its last timed
+        replay, waited for (empty where none has run)."""
+        rows, dropped = list(self._rows), self.dropped
+        return {"records": list(map(Record._make, rows)), "dropped": dropped,
+                "phases_ms": {} if self.phases is None else self.phases.times_ms()}
+
+
+RECORDER = Recorder()
+_OPEN: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "twotower_tpu_torch_open_span", default=None)
+_OFF = contextlib.nullcontext()
+_FAST_RANGE = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+
+
+def _range(name: str):
+    """A profiler range: torch's C++ one where it has it, which costs about
+    a tenth of ``record_function``'s (a dispatched op) while the profiler
+    records."""
+    return torch.profiler.record_function(name) if _FAST_RANGE is None else _FAST_RANGE(name)
+
+
+_THREAD = threading.local()
+
+
+def _thread_id() -> int:
+    """This thread's OS id, asked of the system once a thread: the call is
+    a system call, which costs microseconds where system calls are
+    intercepted."""
+    try:
+        return _THREAD.id
+    except AttributeError:
+        _THREAD.id = threading.get_native_id()
+        return _THREAD.id
+
+
+def tracing() -> bool:
+    """Whether spans and marks are recorded: while a
+    ``torch.profiler`` records, in any thread of the process."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Span:
+    __slots__ = ("name", "request", "id", "parent", "start", "token", "range")
+
+    def __init__(self, name: str, request: int | None):
+        self.name, self.request = name, request
+
+    # The bookkeeping stays outside the profiler's range: the range holds
+    # the region's own work (and the range's cost), and what the records
+    # cost falls between ranges.
+    def __enter__(self):
+        self.parent = _OPEN.get()
+        self.id = RECORDER.new_id()
+        self.token = _OPEN.set(self.id)
+        self.range = _range(self.name)
+        self.range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _OPEN.reset(self.token)
+        RECORDER.add(self.name, self.id, self.parent, self.request, _thread_id(),
+                     self.start, end)
+
+
+def span(name: str, *, request: int | None = None):
+    """A context manager timing a region as the span ``name`` while
+    tracing is on; the shared no-op context otherwise. Across an ``await``
+    the profiler's range holds in time whatever other tasks run meanwhile
+    (their records keep their own parents); ``mark`` records an interval
+    without a range."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, request)
+
+
+def mark(name: str, start_ns: int, end_ns: int, *, request: int | None = None,
+         parent: int | None = None) -> None:
+    """Record an interval whose ends (``time.perf_counter_ns()``) the
+    caller took: one that crosses an ``await``. Kept in memory only."""
+    if _autograd_profiler._is_profiler_enabled:
+        RECORDER.add(name, RECORDER.new_id(), parent, request, _thread_id(),
+                     start_ns, end_ns)
+
+
+class _Collections:
+    """Garbage collections as spans ``gc.gen<N>`` while tracing is on: a
+    callback the collector calls at each collection's start and stop, which
+    does nothing while tracing is off. Installed once, at import."""
+
+    def __init__(self):
+        self.open = None  # (name, range, start_ns) of the collection under way
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            if _autograd_profiler._is_profiler_enabled:
+                name = f"gc.gen{info['generation']}"
+                rng = _range(name)
+                rng.__enter__()
+                self.open = (name, rng, time.perf_counter_ns())
+        elif self.open is not None:
+            name, rng, start = self.open
+            self.open = None
+            RECORDER.add(name, RECORDER.new_id(), None, None, _thread_id(),
+                         start, time.perf_counter_ns())
+            rng.__exit__(None, None, None)
+
+
+gc.callbacks.append(_Collections())
+
+
+def new_id() -> int:
+    """A fresh id for a request or a group, unique among every record's."""
+    return RECORDER.new_id()
+
+
+def snapshot() -> dict:
+    return RECORDER.snapshot()
+
+
+def reset() -> None:
+    RECORDER.reset()
+
+
+class StepPhases:
+    """Timing events at the boundaries of a captured train step's phases
+    (``STEP_PHASES``; the step marks them with ``step_phase``), recorded in
+    line while a graph of the step is captured (``capturing``), so that its
+    replays record them again. ``replays`` counts those replays;
+    ``times_ms`` turns the last one's events into milliseconds, waiting for
+    its end: read it off the step's path (an epoch's end, after a trace).
+    ``event`` makes one event (tests pass a fake)."""
+
+    BOUNDARIES = (*STEP_PHASES, "end")
+
+    def __init__(self, event=None):
+        if event is None:
+            event = functools.partial(torch.cuda.Event, enable_timing=True, external=True)
+        self.events = [event() for _ in self.BOUNDARIES]
+        self.reached = 0
+        self.replays = 0
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Record the boundaries the step marks in this thread, in order."""
+        self.reached = 0
+        _CAPTURING.phases = self
+        try:
+            yield self
+        finally:
+            _CAPTURING.phases = None
+        if self.reached != len(self.BOUNDARIES):
+            raise RuntimeError(f"the step marked {self.reached} of its "
+                               f"{len(self.BOUNDARIES)} phase boundaries")
+
+    def boundary(self, name: str) -> None:
+        want = self.BOUNDARIES[self.reached] if self.reached < len(self.BOUNDARIES) else None
+        if name != want:
+            raise RuntimeError(f"step phase boundary {name!r} where {want!r} was due")
+        self.events[self.reached].record()
+        self.reached += 1
+
+    def times_ms(self) -> dict[str, float]:
+        """Each phase's milliseconds in the last replay (empty before one)."""
+        if not self.replays:
+            return {}
+        self.events[-1].synchronize()
+        return {name: a.elapsed_time(b)
+                for name, a, b in zip(STEP_PHASES, self.events, self.events[1:])}
+
+
+_CAPTURING = threading.local()
+
+
+def step_phase(name: str) -> None:
+    """The train step's boundary before phase ``name`` (``"end"``: after
+    the last): an event recorded where a ``StepPhases`` captures in this
+    thread, nothing otherwise (the CPU, an eager step, the host loop)."""
+    phases = getattr(_CAPTURING, "phases", None)
+    if phases is not None:
+        phases.boundary(name)
+
+
+def register_phases(phases: StepPhases) -> None:
+    """Make ``phases`` the step ``snapshot()`` reads."""
+    RECORDER.phases = phases
+
 
 @contextlib.contextmanager
 def trace(logdir: str | Path | None):
     """``torch.profiler`` trace over a code region, exported to
-    ``logdir/trace.json``; no-op when logdir is None."""
+    ``logdir/trace.json`` with the region's spans and marks (process 0, a
+    row a thread; their clock placed on the profiler's by an anchor range);
+    no-op when logdir is None."""
     if logdir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     logdir = Path(logdir)
@@ -42,9 +313,31 @@ def trace(logdir: str | Path | None):
         activities.append(ProfilerActivity.CUDA)
     logger.info("profiler trace started -> %s", logdir)
     with profile(activities=activities) as prof:
+        first = RECORDER.new_id()  # ids grow: the region's records come after it
+        before = time.perf_counter_ns()
+        with torch.profiler.record_function(_ANCHOR):
+            pass
+        after = time.perf_counter_ns()
         yield
-    prof.export_chrome_trace(str(logdir / "trace.json"))
-    logger.info("profiler trace written to %s", logdir / "trace.json")
+    path = logdir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    records = [r for r in RECORDER.snapshot()["records"] if r.id > first]
+    _add_records(path, records, (before + after) / 2)
+    logger.info("profiler trace written to %s (%d spans and marks)", path, len(records))
+
+
+def _add_records(path: Path, records: list[Record], anchor_ns: float) -> None:
+    data = json.loads(path.read_text())
+    events = data["traceEvents"]
+    anchor = next(e for e in events if e.get("name") == _ANCHOR)
+    offset_us = anchor["ts"] + anchor.get("dur", 0.0) / 2 - anchor_ns / 1e3
+    events.append({"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
+                   "args": {"name": "spans and marks"}})
+    events.extend({"ph": "X", "cat": "span", "name": r.name, "pid": 0, "tid": r.thread,
+                   "ts": r.start_ns / 1e3 + offset_us, "dur": (r.end_ns - r.start_ns) / 1e3,
+                   "args": {"id": r.id, "parent": r.parent, "request": r.request}}
+                  for r in records)
+    path.write_text(json.dumps(data))
 
 
 class StepTimer:
