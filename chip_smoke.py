@@ -92,6 +92,28 @@
    card against one full torch.topk of the whole [B, N] score matrix at
    B=4096, N=100,000, D=128, k=100: ids equal except between exactly tied
    scores, scores rtol 1e-6.
+6b. The approx search's block-maxima prefilter over a bfloat16 corpus
+   (ops/prefilter.py, ops/csrc/search_prefilter.cu) at c3_validate's batch
+   (4096 query rows over 1,145,145 items, D=128, k=100), at serving's one
+   request and full batch over 10M items (B=1, and B=256 with padding rows
+   past num_valid), and at ragged edges (D 16, 64, 256; k 1, 10, 100): one
+   launch of each wrapper a topk_mips_approx call; its top-k against the
+   search it replaced (torch.mm(out_dtype=float32) of 256 query rows by
+   2M items, torch.topk, merged): scores within rtol 1e-5 and atol 1e-5 x
+   the largest |score| (float32 sums of the same bf16 products in another
+   order), ids k distinct real rows, equal outside scores tied within that
+   tolerance (float64 sums of the bf16 values); both kernels against their
+   plain versions (ops/prefilter.py's block_maxima_plain and
+   block_candidates_plain, float32 products of the upcast bf16 values, TF32
+   off) on the same inputs, every row, the same tolerance (and whether bit
+   for bit); each chosen block's largest candidate score equal to its
+   maximum bit for bit; a depth the kernels do not take refused at
+   launch. At the first three shapes: each kernel's device ms (one call,
+   and back to back), the select's, the whole search's, the plain
+   versions' and the replaced search's, beside the bound (2 B N D at 989
+   TFLOP/s or the corpus, queries and top-k bytes at 3.35 TB/s, the
+   larger). Prints one {"prefilter": ...} JSON line. python3 chip_smoke.py
+   --prefilter-only runs phases 1, 2 and 6b alone (no result line).
 7. The slice at full width: train-model with the default model (embedding
    128, towers [512,256,128], bf16 compute, dropout 0.1, log q, lazy-Adam
    tables, host dedup), batch 4096, two epochs, validation every epoch, on
@@ -380,6 +402,7 @@ TEMP = 0.1
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 # Kernel row name -> (CUDA function, source under twotower_tpu_torch/ops/csrc).
 KERNELS = {
     "fused_loss_fwd": ("fused_loss_fwd_kernel", "fused_loss.cu"),
@@ -393,9 +416,13 @@ KERNELS = {
     # The backward's second pass (adds the slices' partial sums), launched by
     # the dU and dV entry points: reported, but not a row of its own.
     "fused_loss_bwd_sum_slices": ("fused_loss_bwd_sum_slices", "fused_loss_bwd.cu"),
+    # The approx search's prefilter over a bfloat16 corpus (phase 6b).
+    "search_prefilter_maxima": ("prefilter_maxima_kernel", "search_prefilter.cu"),
+    "search_prefilter_candidates": ("prefilter_candidates_kernel", "search_prefilter.cu"),
 }
 TENSOR_CORE_KERNELS = ("fused_loss_fwd", "fused_loss_fwd_deep", "fused_loss_bwd_du",
-                       "fused_loss_bwd_dv")
+                       "fused_loss_bwd_dv", "search_prefilter_maxima",
+                       "search_prefilter_candidates")
 CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (MAIN_B, MAIN_D, MAIN_B, 0, True),
     (1000, MAIN_D, 1000, 0, False),
@@ -1378,6 +1405,143 @@ def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
         f"{differ.numel()} ids differ (tied scores)")
 
 
+# Phase 6b's shapes: query rows, corpus rows, depth, k, real corpus rows
+# (None: all). c3_validate's batch; serving's one request and full batch
+# over 10M items; a ragged query tile and corpus tail at D 64; D 256 and
+# k 1; D 16, k 100 and 257 query rows (two query tiles, the second of one row).
+PREFILTER_SHAPES = [
+    (4096, 1_145_145, 128, 100, None),
+    (1, 10_000_000, 128, 100, None),
+    (256, 10_000_000, 128, 100, 9_999_937),
+    (300, 200_003, 64, 10, None),
+    (5, 100_000, 256, 1, None),
+    (257, 50_000, 16, 100, 49_000),
+]
+PREFILTER_TIMED = 3  # the first shapes are timed
+PREFILTER_RTOL = 1e-5
+
+
+def library_topk(q, corpus, k: int, n_real: int, query_chunk: int = 256,
+                 item_chunk: int = 1 << 21):
+    """The search the prefilter replaced: torch.mm(out_dtype=float32) of
+    ``query_chunk`` bfloat16 query rows against ``item_chunk`` corpus rows,
+    torch.topk of each product, merged. Phase 6b's yardstick only."""
+    from twotower_tpu_torch.ops.topk import _merge
+
+    qb = q.to(torch.bfloat16)
+    vals, ids = [], []
+    for s in range(0, q.shape[0], query_chunk):
+        top = None
+        for lo in range(0, n_real, item_chunk):
+            hi = min(lo + item_chunk, n_real)
+            sc = torch.mm(qb[s:s + query_chunk], corpus[lo:hi].T, out_dtype=torch.float32)
+            v, i = torch.topk(sc, min(k, hi - lo), dim=1)
+            del sc
+            top = (v, i + lo) if top is None else _merge(*top, v, i + lo, k)
+        vals.append(top[0])
+        ids.append(top[1])
+    return torch.cat(vals), torch.cat(ids)
+
+
+def _bf16_dots(qb, corpus, ids):
+    """float64 sums of the bf16 products of each query row with its ids' rows."""
+    return torch.einsum("bd,bkd->bk", qb.double(), corpus[ids].double())
+
+
+def check_prefilter(shapes=PREFILTER_SHAPES) -> list[dict]:
+    """Phase 6b (see the module docstring): returns a row a shape."""
+    from twotower_tpu_torch.ops import prefilter
+    from twotower_tpu_torch.ops.topk import topk_mips_approx
+
+    block = prefilter.BLOCK
+    out = []
+    for i, (b, n, d, k, valid) in enumerate(shapes):
+        n_real = n if valid is None else valid
+        gen = torch.Generator(device="cuda").manual_seed(b + n + d + k)
+        q = torch.randn(b, d, generator=gen, device="cuda")
+        corpus = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        qb, real = q.to(torch.bfloat16), corpus[:n_real]
+        before = (prefilter.block_maxima.launches, prefilter.block_candidates.launches)
+        vals, ids = topk_mips_approx(q, corpus, k, num_valid=valid)
+        torch.cuda.synchronize()
+        launches = (prefilter.block_maxima.launches - before[0],
+                    prefilter.block_candidates.launches - before[1])
+        if launches != (1, 1):
+            raise RuntimeError(f"{(b, n, d, k)}: kernel launches a call {launches}, not (1, 1)")
+        ref_vals, ref_ids = library_topk(q, corpus, k, n_real)
+        atol = PREFILTER_RTOL * float(ref_vals.abs().max())
+        torch.testing.assert_close(vals, ref_vals, rtol=PREFILTER_RTOL, atol=atol)
+        srt = ids.sort(dim=1).values
+        if ids.min() < 0 or ids.max() >= n_real or bool((srt[:, 1:] == srt[:, :-1]).any()):
+            raise RuntimeError(f"{(b, n, d, k)}: ids are not k distinct real corpus rows")
+        differ = ids != ref_ids
+        tie_gap = float((_bf16_dots(qb, corpus, ids) - _bf16_dots(qb, corpus, ref_ids))
+                        .abs()[differ].max()) if differ.any() else 0.0
+        if tie_gap > atol:
+            raise RuntimeError(f"{(b, n, d, k)}: ids differ at scores {tie_gap} apart")
+        # The kernels on their own against their plain versions on the same
+        # inputs, every row; the kept scores bit for bit the scores the
+        # maxima were taken over.
+        chunk = max(block, (1 << 28) // b // block * block)  # 1 GiB of plain scores
+        maxima = prefilter.block_maxima(qb, real, n_real)
+        plain_maxima = prefilter.block_maxima_plain(qb, real, n_real, chunk)
+        torch.testing.assert_close(maxima, plain_maxima, rtol=PREFILTER_RTOL, atol=atol)
+        maxima_same_bits = bool(torch.equal(maxima, plain_maxima))
+        del plain_maxima
+        chosen = prefilter.top_blocks(maxima, k)
+        cand = prefilter.block_candidates(qb, real, n_real, chosen)
+        plain_cand = prefilter.block_candidates_plain(qb, real, n_real, chosen, chunk)
+        torch.testing.assert_close(cand, plain_cand, rtol=PREFILTER_RTOL, atol=atol)
+        cand_same_bits = bool(torch.equal(cand, plain_cand))
+        del plain_cand
+        if not torch.equal(cand.view(b, k, block).amax(dim=2), maxima.gather(1, chosen)):
+            raise RuntimeError(f"{(b, n, d, k)}: a kept block's largest score is not its maximum")
+        torch.cuda.synchronize()
+        row = {"b": b, "n": n, "num_valid": n_real, "d": d, "k": k,
+               "score_max_abs_diff": float((vals - ref_vals).abs().max()),
+               "ids_differ": int(differ.sum()), "tie_gap": tie_gap,
+               "maxima_equal_plain_bits": maxima_same_bits,
+               "candidates_equal_plain_bits": cand_same_bits}
+        if i < PREFILTER_TIMED:
+            flops = 2 * b * n_real * d
+            nbytes = n_real * d * 2 + b * d * 4 + b * k * 12
+            bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+            def plain():
+                prefilter.block_maxima_plain(qb, real, n_real, chunk)
+                prefilter.block_candidates_plain(qb, real, n_real, chosen, chunk)
+
+            row.update({
+                "maxima_ms": time_ms(lambda: prefilter.block_maxima(qb, real, n_real)),
+                "maxima_ms_batched": time_ms_batched(
+                    lambda: prefilter.block_maxima(qb, real, n_real)),
+                "candidates_ms": time_ms(lambda: prefilter.block_candidates(
+                    qb, real, n_real, chosen)),
+                "candidates_ms_batched": time_ms_batched(lambda: prefilter.block_candidates(
+                    qb, real, n_real, chosen)),
+                "select_ms": time_ms(lambda: prefilter.top_blocks(maxima, k)),
+                "search_ms": time_ms(lambda: topk_mips_approx(q, corpus, k, num_valid=valid)),
+                "plain_ms": time_ms(plain, reps=2, warm=1),
+                "library_ms": time_ms(lambda: library_topk(q, corpus, k, n_real), reps=5,
+                                      warm=1),
+                "bound_ms": bound_ms,
+                "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+                else "bytes",
+            })
+            row["share_of_bound"] = bound_ms / row["search_ms"]
+            row["maxima_share_of_bound_batched"] = bound_ms / row["maxima_ms_batched"]
+        del corpus, real, maxima, cand
+        torch.cuda.empty_cache()
+        log(f"  prefilter {json.dumps(row)}")
+        out.append(row)
+    lib = prefilter._lib()
+    refused = lib.tt_prefilter_maxima(None, None, 1, 1, 24, None, None)
+    if refused == 0:
+        raise RuntimeError("the maxima kernel took a depth of 24 (not a multiple of 16)")
+    log(f"  a depth of 24 refused at launch: CUDA error {refused}")
+    return out
+
+
 def eval_batch_times(ckpt: Path, card: str):
     """Device ms of one evaluation batch (EVAL_B rows) over the encoded
     corpus of the slice's checkpoint, beside its bound and one float32
@@ -2029,8 +2193,9 @@ def segments_watched(into: list):
 
 def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: dict) -> dict:
     """train-model --config LIFECYCLE_CONFIG --exec ``rung`` in process, with
-    the launch counts set to 0 just before and read just after (they must
-    equal its steps), every epoch validated by the approx search over the
+    the launch counts set to 0 just before and read just after (the loss
+    kernels' must equal its steps; the validation's prefilter launches one
+    of each of its kernels at a time), every epoch validated by the approx search over the
     bfloat16 corpus, and its log, saves, searches and segments recorded in
     ``into``. Returns its summary."""
     from twotower_tpu_torch.ops import kernels
@@ -2051,6 +2216,7 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
             f"training.epochs={epochs}"])
     into["seconds"] = time.perf_counter() - t
     into["launches"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    into["search_launches"] = {w.__name__: w.launches for w in kernels.SEARCH_WRAPPERS}
     into["records"] = epoch_records(ckpt)
     into["steps"] = steps = int(into["records"][-1]["step"])
     if (summary["num_users"], summary["num_items"]) != (LIFECYCLE_USERS, LIFECYCLE_ITEMS):
@@ -2067,6 +2233,10 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
                            "search over the bfloat16 corpus")
     if not all("val/recall@10" in r for r in into["records"]):
         raise RuntimeError(f"lifecycle {rung}: an epoch without validation")
+    search = list(into["search_launches"].values())
+    if not (search[0] == search[1] > 0):
+        raise RuntimeError(f"lifecycle {rung}: validation's prefilter launches "
+                           f"{into['search_launches']}: none, or not one of each kernel a launch")
     return summary
 
 
@@ -2221,6 +2391,8 @@ def run_lifecycle(card: str) -> dict:
     return {
         "launches_auto": row_launches(auto["launches"]),
         "launches_stream": row_launches(stream["launches"]),
+        "search_launches_auto": auto["search_launches"],
+        "search_launches_stream": stream["search_launches"],
         "auto": {"steps": steps, "seconds": auto["seconds"], "saves": auto["saves"],
                  "val_recall_at_10": [r["val/recall@10"] for r in records],
                  "examples_per_sec": [r["examples_per_sec"] for r in records],
@@ -3944,6 +4116,12 @@ def main() -> int:
     log(f"  built {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
     report = build_report(paths)
 
+    if sys.argv[1:] == ["--prefilter-only"]:  # a partial run: phases 1, 2 and 6b, no result line
+        log("phase 6b: the approx search's prefilter")
+        log(json.dumps({"prefilter": check_prefilter()}))
+        log("phases 1, 2 and 6b passed (a partial run: no result line)")
+        return 0
+
     log("phase 3: kernels against their plain versions")
     errs = check_kernels(CHECK_SHAPES)
 
@@ -3988,6 +4166,10 @@ def main() -> int:
         check_cli_card_vs_cpu(*variant)
     check_twopass()
 
+    log("phase 6b: the approx search's prefilter")
+    prefilter_rows = check_prefilter()
+    log(json.dumps({"prefilter": prefilter_rows}))
+
     log("phase 7: train-model and evaluate-model at full width")
     slice_launches, test_users, best_step, host_summary = run_slice(card)
 
@@ -4022,8 +4204,14 @@ def main() -> int:
     log("phase 8: serving (serve-model's index, service and batcher)")
     kernels.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
-    serve_launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    log(f"  launches of the ported kernels while serving: {serve_launches} (serving runs none)")
+    serve_launches = {w.__name__: w.launches
+                      for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS}
+    log(f"  launches of the hand-written kernels while serving: {serve_launches} (the loss's "
+        "none; the prefilter's one of each a launch of the bfloat16 corpus's searches)")
+    if any(serve_launches[w.__name__] for w in kernels.WRAPPERS):
+        raise RuntimeError(f"serving launched a loss kernel: {serve_launches}")
+    if not (serve_launches["block_maxima"] == serve_launches["block_candidates"] > 0):
+        raise RuntimeError(f"serving's bfloat16 searches launched the prefilter {serve_launches}")
     log(json.dumps({"serving": serving}))
 
     log("phase 8b: the native CPU index against the card's exact index")
@@ -4063,6 +4251,21 @@ def main() -> int:
             mesh_one["launches_cli_device_loop"][row["name"]])
         row["launches_mesh_gloo_2x1_rank1"] = mesh_two["2x1"]["launches_rank1"][row["name"]]
         row["launches_mesh_gloo_1x2_rank1"] = mesh_two["1x2"]["launches_rank1"][row["name"]]
+    at_validate = prefilter_rows[0]  # c3_validate's batch
+    for name, wrapper, part in (("search_prefilter_maxima", "block_maxima", "maxima"),
+                                ("search_prefilter_candidates", "block_candidates", "candidates")):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"twotower_tpu_torch/ops/csrc/{KERNELS[name][1]}",
+            "replaces": "no TPU kernel (topk_mips_approx's torch.topk over every score)",
+            **report[name],
+            "ms_4096x1145145": at_validate[f"{part}_ms"],
+            "ms_batched_4096x1145145": at_validate[f"{part}_ms_batched"],
+            "launches_lifecycle_auto": lifecycle["search_launches_auto"][wrapper],
+            "launches_lifecycle_stream": lifecycle["search_launches_stream"][wrapper],
+            "launches_serve_model": serve_launches[wrapper],
+        })
     log(json.dumps({"kernels": rows}))
     log(f"main path median step ms: {step_ms} ({card}); "
         f"{MAIN_B / step_ms * 1e3:.1f} examples/s; replayed from a CUDA graph: "

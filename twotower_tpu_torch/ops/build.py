@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu")
+SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu", "search_prefilter.cu")
 
 build_logs: dict[str, str] = {}  # source -> nvcc's output (-Xptxas -v: registers, spills)
 

@@ -14,8 +14,10 @@ The TPU kernel accumulated dV across its sequential grid; GPU blocks run in
 parallel, so dV has its own kernel that recomputes S from the saved ``lse``
 (deterministic, no atomics). Each wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
-counts its launches in ``<wrapper>.launches``. A launch made while a CUDA
-graph is captured does not run then: it is recorded in the
+counts its launches in ``<wrapper>.launches``, as do the approx search's
+prefilter wrappers (``SEARCH_WRAPPERS``, ``ops/prefilter.py``): one set of
+counts, reset together by ``reset_launch_counts``. A launch made while a
+CUDA graph is captured does not run then: it is recorded in the
 ``record_launches()`` record open at the time, whose ``replayed()`` adds it
 to the counts on each replay of the graph.
 
@@ -36,7 +38,7 @@ from functools import cache
 
 import torch
 
-from twotower_tpu_torch.ops import build
+from twotower_tpu_torch.ops import build, prefilter
 from twotower_tpu_torch.ops.losses import NEG_INF, weighted_mean_metrics
 
 _INT32_MAX = 2**31 - 1
@@ -280,11 +282,14 @@ def fused_bwd_dv(u, v, ids, cols, row_offset: int, lse, g, inv_temp: float):
 fused_fwd.launches = 0
 fused_bwd_du.launches = 0
 fused_bwd_dv.launches = 0
-WRAPPERS = (fused_fwd, fused_bwd_du, fused_bwd_dv)
+WRAPPERS = (fused_fwd, fused_bwd_du, fused_bwd_dv)  # the loss's: one launch each a step
+# The approx search's over a bfloat16 corpus: one launch each a launch of
+# query rows (``prefilter.topk_prefilter``).
+SEARCH_WRAPPERS = (prefilter.block_maxima, prefilter.block_candidates)
 
 
 def reset_launch_counts() -> None:
-    for w in WRAPPERS:
+    for w in WRAPPERS + SEARCH_WRAPPERS:
         w.launches = 0
 
 
@@ -292,7 +297,7 @@ class LaunchRecord:
     """The kernel launches of one captured CUDA graph, by wrapper."""
 
     def __init__(self):
-        self.counts = {w: 0 for w in WRAPPERS}
+        self.counts = {w: 0 for w in WRAPPERS + SEARCH_WRAPPERS}
 
     def replayed(self, times: int = 1) -> None:
         """Count the recorded launches once for each of ``times`` replays."""

@@ -6,7 +6,9 @@ the exact chunked scan ``topk_mips``, the two-pass search
 candidate blocks), and the serving search ``topk_mips_approx`` over a
 corpus resident in float32, bfloat16 or int8 (``quantize_corpus``). These
 are XLA ops in the JAX package, not Pallas kernels, so they port to library
-products and ``torch.topk``.
+products and ``torch.topk``, except the serving search over a large
+bfloat16 corpus, which goes through the block-maxima prefilter of
+``ops/prefilter.py`` (a kernel on the card that keeps the scores on chip).
 
 Scores are float32. A float32 corpus is multiplied with TF32 off (the JAX
 exact code asks for ``Precision.HIGHEST``): every product runs inside
@@ -33,6 +35,9 @@ import threading
 
 import torch
 import torch.nn.functional as F
+
+from twotower_tpu_torch.ops import prefilter
+from twotower_tpu_torch.utils import profiling
 
 
 def exact_padded_rows(n: int, *, chunk_size: int = 131072) -> int:
@@ -448,7 +453,12 @@ def topk_mips_approx(
     their top-ks exactly.
 
     A bfloat16 corpus meets bfloat16 queries, accumulating and returning
-    float32 (``_scores``). With ``item_scale`` (from ``quantize_corpus``) the
+    float32 (``_scores``). Where ``prefilter.applies`` (depth a multiple of
+    16 up to 256, more than ``4 k`` blocks of 64 rows) such a search takes
+    the exact block-maxima prefilter of ``ops/prefilter.py`` instead, inside
+    the span ``search.prefilter``: the same top-k without writing the
+    scores, and with a launch's maxima and candidates within the same
+    budget. With ``item_scale`` (from ``quantize_corpus``) the
     corpus is int8: the queries are quantized per row and scored in exact
     integers (``_int8_scores``); a scalar scale, and the queries' per-row
     scales, multiply the final ``[B, k]`` values only, while a ``[N]`` scale
@@ -476,6 +486,10 @@ def topk_mips_approx(
     dev = item_emb.device
     if b == 0:
         return torch.zeros((0, k), device=dev), torch.zeros((0, k), dtype=torch.long, device=dev)
+    if not quantized and prefilter.applies(item_emb, k, n_valid):
+        with profiling.span("search.prefilter"):
+            return prefilter.topk_prefilter(query_emb, item_emb[:n_valid].contiguous(), k,
+                                            n_valid, query_chunk * item_chunk)
     per_row_scale = quantized and item_scale.dim() == 1
     if quantized:
         query_emb, query_scale = _quantize_queries(query_emb)
