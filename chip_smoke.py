@@ -19,7 +19,9 @@
    deeper than one tile, unit-norm rows; B=4096 at D=64, unit-norm rows, the
    depth phase 7c trains at; a 2048-row block of B=4096 at offset 2048,
    the 2x1 mesh's block of phase 10c; B=8192 at D=128, unit-norm rows,
-   config 3's batch of phase 7g, where the JAX package runs its XLA loss).
+   config 3's batch of phase 7g, where the JAX package runs its XLA loss;
+   B=32768 at D=128, unit-norm rows, the sequence tower's stream of phase
+   5e, with its log q and weights).
    Tolerances: forward outputs rtol 1e-4 / atol 1e-4; dU and dV rtol 5e-3
    / atol 1e-5. Two launches of the
    forward, two of dU and two of dV must give the same bits.
@@ -82,6 +84,15 @@
    [500k, 32] item tokens drawn on the card with a ragged PAD tail a row:
    two eager sparse steps (one launch of each kernel a step), then
    replayed as in phase 5.
+5e. The sequence user tower at full width
+   (configs/torch/seq_dsv2lite_1chip.yaml: DeepSeek-V2-Lite's widths at 5
+   layers, config 3's item side, streams of 32,768 slots) from fresh
+   weights drawn on the card: SEQ_STEPS eager steps of
+   training/seq_step.py over random users' windows (the last stream half
+   padding, weight 0), with launch counts set to 0 just before and read
+   just after: each loss kernel once a step, finite losses. Prints the
+   step's ms and the peak device memory. python3 chip_smoke.py --seq-only
+   runs phases 1-3 and 5e alone (no result line).
 6. Card against CPU, small: the train-model and evaluate-model CLIs, in
    process through main(argv), at the CLI tests' sizes (200 users, 100
    items, 5000 interactions, embedding 16, towers [32,16], batch 64,
@@ -364,11 +375,11 @@
    Each row also carries its launches in phase 7's train-model run, in
    phase 7b(b)'s device-loop run, in phase 7c's train stage, in phase 8's
    serving (0), in phase 5c's replayed dense adam epoch, in phase 5d's
-   replayed text epoch, in phase 7d's, 7e's and 7f's train-model runs, in
-   phase 7g's --exec auto and --exec stream runs, in phase 7h's train
-   stage (launches_oracle_config3), and in phase 10's mesh
-   runs (10b's Trainer, device-loop epoch and both train-model --mesh runs;
-   rank 1's in 10c's 2x1 and 1x2).
+   replayed text epoch, in phase 5e's sequence-tower steps, in phase 7d's,
+   7e's and 7f's train-model runs, in phase 7g's --exec auto and --exec
+   stream runs, in phase 7h's train stage (launches_oracle_config3), and in
+   phase 10's mesh runs (10b's Trainer, device-loop epoch and both
+   train-model --mesh runs; rank 1's in 10c's 2x1 and 1x2).
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -394,6 +405,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MAIN_B, MAIN_D = 4096, 128
 LIFECYCLE_B = 8192  # configs/lifecycle_50m_1chip.yaml's batch (phase 7g)
+SEQ_CONFIG = ROOT / "configs" / "torch" / "seq_dsv2lite_1chip.yaml"
+SEQ_B = 32768  # its stream of slots (phase 5e)
+SEQ_ITEMS = 1_145_145  # config 3's items
+SEQ_STEPS = 3
 NUM_USERS, NUM_ITEMS = 1_000_000, 500_000
 WARMUP_STEPS, MEASURE_STEPS = 5, 20
 TEMP = 0.1
@@ -439,6 +454,8 @@ CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (MAIN_B, MAIN_D, MAIN_B // 2, MAIN_B // 2, True),
     # Config 3's batch (phase 7g), where the JAX package runs its XLA loss.
     (LIFECYCLE_B, MAIN_D, LIFECYCLE_B, 0, True),
+    # The sequence tower's stream (phase 5e), every slot scored in one loss.
+    (SEQ_B, MAIN_D, SEQ_B, 0, True),
 ]
 
 
@@ -1243,6 +1260,59 @@ def run_text_full(card: str) -> dict:
     del state, tokens
     torch.cuda.empty_cache()
     return got
+
+
+def run_seq_steps(card: str) -> dict:
+    """Phase 5e: SEQ_STEPS eager steps of the sequence user tower at full
+    width, launch counts set to 0 just before; each loss kernel must run
+    once a step."""
+    from twotower_tpu_torch.config import load_config
+    from twotower_tpu_torch.data.sequences import StreamDataset
+    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+
+    cfg = load_config(SEQ_CONFIG)
+    if (cfg.model.user_tower, cfg.training.batch_size) != ("sequence", SEQ_B):
+        raise RuntimeError(f"{SEQ_CONFIG.name}: {cfg.model.user_tower} tower, batch "
+                           f"{cfg.training.batch_size}")
+    opt = make_optimizer(cfg.training)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, 0, SEQ_ITEMS)
+    torch.cuda.synchronize()
+    log(f"  init_train_state: {time.perf_counter() - t0:.3f} s")
+    # About 21 interactions a user, so about 20 slots a window; the slots
+    # fill SEQ_STEPS - 1 streams and half the last, whose rest is padding.
+    n = int((SEQ_STEPS - 0.5) * SEQ_B * 21 / 20)
+    rng = np.random.default_rng(0)
+    data = StreamDataset(rng.integers(0, n // 21, n), rng.integers(0, SEQ_ITEMS, n), cfg,
+                         device="cuda")
+    if data.num_steps != SEQ_STEPS:
+        raise RuntimeError(f"{data.num_steps} streams, not {SEQ_STEPS}")
+    counts = np.bincount(rng.integers(0, SEQ_ITEMS, n), minlength=state.params[
+        "item_embedding"].shape[0])
+    step = make_train_step(cfg, opt, np.log((counts + 1) / (counts.sum() + len(counts))))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    for i in range(SEQ_STEPS):
+        batch = {k: v[i * SEQ_B:(i + 1) * SEQ_B] for k, v in data.columns.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
+    if any(v != SEQ_STEPS for v in launches.values()):
+        raise RuntimeError(f"sequence steps: launches {launches}, not one a step")
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"non-finite loss in the sequence steps: {losses}")
+    log(f"  {SEQ_STEPS} steps of {SEQ_B} slots ({data.num_examples} with a target), losses "
+        f"{[round(x, 4) for x in losses]}, step ms {[round(x, 1) for x in step_ms]}; launches "
+        f"{launches} (one a step); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    del state, data, step
+    torch.cuda.empty_cache()
+    return {"launches": row_launches(launches), "losses": losses, "step_ms": step_ms}
 
 
 def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int], dict[str, float]]:
@@ -4125,6 +4195,12 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     errs = check_kernels(CHECK_SHAPES)
 
+    if sys.argv[1:] == ["--seq-only"]:  # a partial run: phases 1-3 and 5e, no result line
+        log("phase 5e: the sequence user tower's steps at full width")
+        run_seq_steps(card)
+        log("phases 1-3 and 5e passed (a partial run: no result line)")
+        return 0
+
     if sys.argv[1:] == ["--mesh-only"]:  # a partial run: phases 1-3, 10 and 8c, no result line
         *_, mesh_ckpt = run_mesh_phase(card)
         log("phase 8c: sharded serving")
@@ -4160,6 +4236,9 @@ def main() -> int:
 
     log("phase 5d: the text step at full width")
     text = run_text_full(card)
+
+    log("phase 5e: the sequence user tower's steps at full width")
+    seq = run_seq_steps(card)
 
     log("phase 6: train-model and evaluate-model, card against CPU, small")
     for variant in CLI_VARIANTS:
@@ -4238,6 +4317,7 @@ def main() -> int:
         row["launches_serve_model"] = serve_launches[names[row["name"]]]
         row["launches_dense_step"] = dense["adam"]["launches"][names[row["name"]]]
         row["launches_text_step"] = text["launches"][names[row["name"]]]
+        row["launches_seq_step"] = seq["launches"][row["name"]]
         row["launches_text_train_model"] = text_slice["launches"][row["name"]]
         row["launches_transformer_train_model"] = transformer["launches"][row["name"]]
         row["launches_orchestrated_train_model"] = orchestrated["launches"][row["name"]]

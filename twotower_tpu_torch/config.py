@@ -109,6 +109,70 @@ class PreprocessingConfig:
 
 
 @dataclass
+class SequenceConfig:
+    """The sequence user tower (``model.user_tower: sequence``,
+    ``models/seq_tower.py``): DeepSeek-V2's decoder layers over each user's
+    packed interaction history. The keys and defaults are DeepSeek-V2-Lite's
+    published ``config.json`` (https://huggingface.co/deepseek-ai/
+    DeepSeek-V2-Lite), cut to 5 layers; ``aux_loss_alpha`` is the
+    ``DeepseekV2Config`` default. ``max_window``: the most input slots of one
+    user window (the attention's reach). The router's published
+    ``norm_topk_prob`` (false) and ``routed_scaling_factor`` (1) are the
+    tower's constants."""
+
+    hidden_size: int = 2048
+    num_hidden_layers: int = 5
+    first_k_dense_replace: int = 1
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: dict = field(default_factory=lambda: {
+        "type": "yarn", "factor": 40.0, "original_max_position_embeddings": 4096,
+        "beta_fast": 32.0, "beta_slow": 1.0, "mscale": 0.707, "mscale_all_dim": 0.707})
+    aux_loss_alpha: float = 0.001
+    max_window: int = 64
+
+    def __post_init__(self) -> None:
+        positive = ("hidden_size", "num_hidden_layers", "intermediate_size",
+                    "moe_intermediate_size", "n_routed_experts", "num_experts_per_tok",
+                    "num_attention_heads", "kv_lora_rank", "qk_nope_head_dim",
+                    "qk_rope_head_dim", "v_head_dim", "max_window")
+        for name in positive:
+            if int(getattr(self, name)) <= 0:
+                raise ValueError(f"model.sequence.{name} must be positive")
+        if not 0 <= self.first_k_dense_replace <= self.num_hidden_layers:
+            raise ValueError("model.sequence.first_k_dense_replace must lie in "
+                             "[0, num_hidden_layers]")
+        if self.num_experts_per_tok > self.n_routed_experts:
+            raise ValueError("model.sequence.num_experts_per_tok must not exceed "
+                             "n_routed_experts")
+        if self.n_shared_experts < 0 or self.aux_loss_alpha < 0:
+            raise ValueError("model.sequence.n_shared_experts and aux_loss_alpha must be >= 0")
+        if self.qk_rope_head_dim % 2:
+            raise ValueError("model.sequence.qk_rope_head_dim must be even")
+        if self.rms_norm_eps <= 0 or self.rope_theta <= 0:
+            raise ValueError("model.sequence.rms_norm_eps and rope_theta must be positive")
+        scaling = self.rope_scaling or {}
+        if scaling and scaling.get("type", "yarn") != "yarn":
+            raise ValueError("model.sequence.rope_scaling supports the 'yarn' type only")
+        if scaling and float(scaling.get("factor", 1.0)) < 1.0:
+            raise ValueError("model.sequence.rope_scaling.factor must be >= 1")
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+
+@dataclass
 class ModelConfig:
     """Two-tower architecture (reference: configs/data_config.yaml:54-59)."""
 
@@ -134,8 +198,20 @@ class ModelConfig:
     # Initialize the text table from the checkpoint's word embeddings
     # (PCA-projected to embedding_dim) when weights exist at text_model_path.
     text_pretrained_init: bool = True
+    # The user tower: "mlp" (an ID table and the MLP tower above) or
+    # "sequence" (no user table: the tower of ``sequence`` over the user's
+    # recent items, ``models/seq_tower.py``; the port only).
+    user_tower: str = "mlp"
+    sequence: SequenceConfig = field(default_factory=SequenceConfig)
 
     def __post_init__(self) -> None:
+        if self.user_tower not in ("mlp", "sequence"):
+            raise ValueError(
+                f"model.user_tower must be 'mlp' or 'sequence', got {self.user_tower!r}"
+            )
+        if self.user_tower == "sequence" and self.text_buckets > 0:
+            raise ValueError("model.user_tower='sequence' takes no text tower "
+                             "(model.text_buckets must be 0)")
         if self.embedding_dim <= 0:
             raise ValueError("model.embedding_dim must be positive")
         if self.text_encoder not in ("hashed", "transformer"):
@@ -548,6 +624,7 @@ _SECTION_TYPES = {
     "mesh": MeshConfig,
     "serving": ServingConfig,
     "filtering": FilteringConfig,
+    "sequence": SequenceConfig,
 }
 
 

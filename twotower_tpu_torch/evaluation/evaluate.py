@@ -169,8 +169,13 @@ def _prepared_subset(args, config: Config, ckpt_dir: Path):
                 f"{len(ckpt_vocab.items)}); evaluate against the artifact the model "
                 "trained on"
             )
-    cols = dataset.load_split(rule, args.subset)
-    return cols["user_idx"], cols["item_idx"], num_users, num_items
+    if config.model.user_tower == "sequence":  # the users' histories come from train
+        both = dataset.load_splits(rule, ("train", args.subset))
+        cols, train = both[args.subset], both["train"]
+        train = (train["user_idx"], train["item_idx"])
+    else:
+        cols, train = dataset.load_split(rule, args.subset), None
+    return cols["user_idx"], cols["item_idx"], num_users, num_items, train
 
 
 def _in_memory_subset(args, config: Config, ckpt_dir: Path):
@@ -201,7 +206,8 @@ def _in_memory_subset(args, config: Config, ckpt_dir: Path):
 
     splits = pp.split_data(data, method=args.split)
     subset = splits.val if args.subset == "val" else splits.test
-    return subset.user_idx, subset.item_idx, len(pp.vocab.users), len(pp.vocab.items)
+    return (subset.user_idx, subset.item_idx, len(pp.vocab.users), len(pp.vocab.items),
+            (splits.train.user_idx, splits.train.item_idx))
 
 
 def run(args, config: Config) -> dict:
@@ -209,7 +215,7 @@ def run(args, config: Config) -> dict:
 
     ckpt_dir = Path(args.checkpoint_dir)
     subset_of = _prepared_subset if args.prepared_dir else _in_memory_subset
-    user_idx, item_idx, num_users, num_items = subset_of(args, config, ckpt_dir)
+    user_idx, item_idx, num_users, num_items, train = subset_of(args, config, ckpt_dir)
     mesh = None
     if args.mesh:
         from twotower_tpu_torch.parallel import build_mesh
@@ -218,8 +224,15 @@ def run(args, config: Config) -> dict:
     params, meta = restore_params(
         config, ckpt_dir, num_users, num_items, step=args.step, device=args.device, mesh=mesh
     )
+    histories = None
+    if config.model.user_tower == "sequence":
+        from twotower_tpu_torch.data.sequences import UserHistories
+        from twotower_tpu_torch.models.two_tower import dead_row
+
+        histories = UserHistories(*train, num_users, config.model.sequence.max_window,
+                                  dead_row(params["item_embedding"]), device=args.device)
     evaluator = Evaluator(config, num_items, item_tokens=load_item_tokens(ckpt_dir),
-                          device=args.device, mesh=mesh)
+                          device=args.device, mesh=mesh, histories=histories)
     eu, ei = _capped(user_idx, item_idx, getattr(args, "rows", None))
     metrics = evaluator.evaluate(params, eu, ei)
     out = {

@@ -3,7 +3,9 @@
 Counterpart of ``twotower_tpu/evaluation/evaluator.py``: encode the whole
 item corpus through the candidate tower once per evaluation (chunked, on the
 device; with the item text tokens when the model has a text tower), then stream user batches through the query tower -> MIPS top-k ->
-metrics. Exact mode (``retrieval.eval_exact``, the default) searches with
+metrics. A sequence user tower reads each user's last train items
+(``histories``, ``data.sequences.UserHistories``). Exact mode
+(``retrieval.eval_exact``, the default) searches with
 ``ops.topk.topk_mips_twopass`` (float32 scores), so metrics are deterministic
 up to tie order. Validation mode (``eval_exact=false``) keeps the corpus at
 ``retrieval.eval_corpus_dtype`` (float32 or bfloat16) and searches with the
@@ -61,7 +63,13 @@ class Evaluator:
         item_tokens=None,
         mesh=None,
         device: str | torch.device | None = None,
+        histories=None,
     ):
+        if config.model.user_tower == "sequence" and (histories is None or mesh is not None):
+            raise ValueError("a sequence user tower is evaluated on one device, from the "
+                             "users' histories (data.sequences.UserHistories)")
+        # The users' recent items, where the user tower is a sequence tower.
+        self.histories = histories
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
         # The item text tokens ([num_items, T]) of a model with a text tower,
@@ -131,7 +139,8 @@ class Evaluator:
         for start in range(0, n, self.batch_size):
             bu = users[start : start + self.batch_size]
             bi = items[start : start + self.batch_size]
-            user_emb = two_tower.embed_users(params, bu, mcfg, train=False)
+            user_emb = two_tower.embed_users(params, bu, mcfg, train=False,
+                                             histories=self.histories)
             if self.exact:
                 _, topk_idx = topk_mips_twopass(
                     user_emb, corpus, self.max_k, chunk_size=self.corpus_chunk_size

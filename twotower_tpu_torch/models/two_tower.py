@@ -79,6 +79,7 @@ def init_params(
     *,
     pad_multiple: int = LANE,
     text_embedding_init: Any = None,
+    seq_gen: torch.Generator | None = None,
 ) -> Params:
     """Build the parameter dict on ``gen.device`` (same shapes as the JAX
     package; the values differ, since torch and JAX draw different numbers
@@ -89,7 +90,12 @@ def init_params(
     bucket table ``text_embedding`` (``[padded_rows(text_buckets), E]``,
     row 0 the PAD bucket), drawn after the towers, or
     ``text_embedding_init`` (that shape, e.g. pretrained word embeddings)
-    in its place (JAX ``two_tower.py:100-114``)."""
+    in its place (JAX ``two_tower.py:100-114``).
+
+    With ``model.user_tower == "sequence"`` there is no user table or user
+    MLP: the dict holds the item table, the item tower and ``seq_tower``
+    (``models/seq_tower.py``), drawn from ``seq_gen`` (on the device that
+    is to hold it) or else from ``gen``."""
     device = gen.device
     e = config.embedding_dim
     scale = e**-0.5
@@ -99,6 +105,14 @@ def init_params(
             (padded_rows(rows, pad_multiple), e), generator=gen, device=device
         ) * scale
 
+    if config.user_tower == "sequence":
+        from twotower_tpu_torch.models import seq_tower
+
+        return {
+            "item_embedding": table(num_items),
+            "item_tower": _init_tower(gen, e, list(config.item_tower_dims), device),
+            "seq_tower": seq_tower.init_params(seq_gen or gen, config),
+        }
     params = {
         "user_embedding": table(num_users),
         "item_embedding": table(num_items),
@@ -219,8 +233,19 @@ def embed_users(
     *,
     train: bool = False,
     dropout_gen: torch.Generator | None = None,
+    histories=None,
 ) -> torch.Tensor:
-    """Query tower: table gather -> MLP -> optional L2 normalize."""
+    """Query tower: table gather -> MLP -> optional L2 normalize. A
+    sequence tower (``model.user_tower == "sequence"``) reads each user's
+    recent items instead: ``histories`` (``data.sequences.UserHistories``)
+    gives the users' windows."""
+    if config.user_tower == "sequence":
+        from twotower_tpu_torch.models import seq_tower
+
+        if histories is None:
+            raise ValueError("a sequence user tower embeds users from their histories")
+        windows, lengths = histories.windows(user_idx)
+        return seq_tower.embed_windows(params, windows, lengths, config)
     return apply_user_tower(
         params, params["user_embedding"][user_idx], config,
         train=train, dropout_gen=dropout_gen,

@@ -86,6 +86,17 @@ def _gather_rows(shards: list[torch.Tensor], rows: int, ids: torch.Tensor,
     return out.view(*ids.shape, -1)
 
 
+def refuse_sequence_tower(config: Config, checkpoint_dir) -> None:
+    """Serving takes user ids: a checkpoint of a sequence user tower
+    (``model.user_tower: sequence``), which embeds a user from their recent
+    items, is refused by name."""
+    if config.model.user_tower == "sequence":
+        raise ValueError(
+            f"{checkpoint_dir} holds a sequence user tower (model.user_tower=sequence): "
+            "serving a sequence-tower checkpoint is not supported (it embeds users from "
+            "their histories, which /recommend does not take)")
+
+
 class RetrievalIndex:
     """User/query -> top-k item retrieval over a frozen model.
 
@@ -340,6 +351,7 @@ class RetrievalIndex:
         from twotower_tpu_torch.data.vocab import VocabPair
         from twotower_tpu_torch.evaluation.evaluate import load_item_tokens, restore_params
 
+        refuse_sequence_tower(config, checkpoint_dir)
         if mesh is None:
             device = resolve_device(device)  # no GPU: raise before any work
         else:  # restored to host memory, then each row shard placed on its device

@@ -162,8 +162,13 @@ class _EpochProgram:
         self._done = 0
         self._stream = torch.cuda.Stream(dev) if capture else None
         # The phases' events, recorded by the graph of a step that marks them.
-        self._phases = (profiling.StepPhases()
+        self._phases = (profiling.StepPhases(boundaries=getattr(
+            self._step, "phase_boundaries", profiling.StepPhases.BOUNDARIES))
                         if capture and getattr(self._step, "marks_phases", False) else None)
+        # A step over one packed stream (``step.permutes_streams``): the epoch
+        # permutes whole streams of ``batch_size`` slots, never the slots
+        # within one.
+        self._streams = getattr(self._step, "permutes_streams", False)
         self._timed = None  # (graph, launch record) of the step with the phases' events
         self._replays = 0
 
@@ -187,19 +192,28 @@ class _EpochProgram:
 
     def begin_epoch(self, state: TrainState, columns: dict, epoch: int, log_q=None,
                     item_tokens=None, *, perm=None) -> None:
-        """Set the epoch's buffers: its permutation, the row counter, the
+        """Set the epoch's buffers: its permutation (for a sequence tower,
+        of whole streams: ``randperm(num_steps)`` from the epoch's seed,
+        stream ``i`` being rows ``[i B, (i + 1) B)``), the row counter, the
         step clock (``state.step``) and the metric sums."""
         n = self.num_steps * self.batch_size
-        if columns["user_idx"].shape[0] != n:
+        rows = next(iter(columns.values())).shape[0]
+        if rows != n:
             raise ValueError(
-                f"columns hold {columns['user_idx'].shape[0]} rows, the epoch {n} "
+                f"columns hold {rows} rows, the epoch {n} "
                 f"({self.num_steps} steps of {self.batch_size})"
             )
         self._bind(state, columns, log_q, item_tokens)
         self._args = (state, columns, log_q, item_tokens)
         if perm is None:
             gen = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch))
-            torch.randperm(n, generator=gen, out=self._perm)
+            if self._streams:
+                order = torch.randperm(self.num_steps, generator=gen, device=self.device)
+                slots = torch.arange(self.batch_size, device=self.device)
+                torch.add(order[:, None] * self.batch_size, slots[None, :],
+                          out=self._perm.view(self.num_steps, self.batch_size))
+            else:
+                torch.randperm(n, generator=gen, out=self._perm)
         else:
             self._perm.copy_(torch.from_numpy(np.array(perm, dtype=np.int64)))
         self._row.zero_()

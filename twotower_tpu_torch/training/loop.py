@@ -146,8 +146,9 @@ def make_step_fn(config: Config, optimizer: Optimizer, *, num_items: int | None 
 
 def make_raw_step(config: Config, optimizer: Optimizer, *, num_items: int | None = None,
                   mesh: Any = None, state_template: TrainState | None = None):
-    """The sparse step when ``training.effective_sparse_updates()``, else the
-    dense one (JAX ``make_train_step``'s dispatch, ``loop.py:186-207``); on a
+    """The sequence tower's step (``training.seq_step``) for
+    ``model.user_tower == "sequence"``; the sparse step when
+    ``training.effective_sparse_updates()``, else the dense one (JAX ``make_train_step``'s dispatch, ``loop.py:186-207``); on a
     ``mesh``, the mesh step (``parallel.spmd.make_sharded_train_step``:
     sparse or dense by ``parallel.use_sparse_mesh_path``), which takes this
     rank's data shard of each batch."""
@@ -156,6 +157,10 @@ def make_raw_step(config: Config, optimizer: Optimizer, *, num_items: int | None
 
         return make_sharded_train_step(config, optimizer, mesh, state_template,
                                        num_items=num_items)
+    if config.model.user_tower == "sequence":
+        from twotower_tpu_torch.training.seq_step import make_seq_step_fn
+
+        return make_seq_step_fn(config, optimizer)
     if config.training.effective_sparse_updates():
         from twotower_tpu_torch.training.sparse import make_sparse_step_fn
 

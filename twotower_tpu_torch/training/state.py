@@ -286,13 +286,20 @@ def init_train_state(
     initial model on every device and at every world size.
     ``text_embedding_init``: an optional ``[padded_rows(text_buckets),
     embedding_dim]`` text table in place of the random one
-    (``two_tower.init_params``)."""
+    (``two_tower.init_params``). A sequence user tower is drawn on
+    ``device`` itself, from a generator there seeded ``training.seed``."""
     from twotower_tpu_torch.models import two_tower
 
     dev = mesh.device if mesh is not None else resolve_device(device)
     gen = torch.Generator().manual_seed(config.training.seed)
+    seq_gen = None
+    if config.model.user_tower == "sequence":  # billions of weights: drawn on the device
+        if mesh is not None:
+            raise ValueError("the sequence user tower trains on one device")
+        seq_gen = torch.Generator(device=dev).manual_seed(config.training.seed)
     params = two_tower.init_params(
-        gen, config.model, num_users, num_items, text_embedding_init=text_embedding_init
+        gen, config.model, num_users, num_items, text_embedding_init=text_embedding_init,
+        seq_gen=seq_gen,
     )
     if mesh is not None:
         return TrainState.for_config(params, optimizer, config, mesh=mesh)

@@ -239,6 +239,21 @@ def _resolve_forced_rung(args) -> None:
         )
 
 
+def _sequence_rung(args, config: Config) -> None:
+    """A sequence user tower trains on the device loop: its epoch is packed
+    streams of user windows (``data.sequences.StreamDataset``), which the
+    host and streamed rungs do not build."""
+    if config.model.user_tower != "sequence":
+        return
+    if args.stream_batches or args.exec_rung == "host" or args.mesh:
+        raise SystemExit("model.user_tower=sequence trains on one device's device loop "
+                         "only (--exec auto or device-loop, no --mesh)")
+    if not args.device_loop:
+        logger.info("execution rung: device_loop — the sequence user tower's packed "
+                    "streams live on the device")
+    args.device_loop = True
+
+
 def _build_mesh(args, config: Config):
     """The mesh of ``--mesh`` (None without it)."""
     if not args.mesh:
@@ -257,6 +272,7 @@ def run(args, config: Config) -> dict:
     from twotower_tpu_torch.data import Preprocessor
 
     _resolve_forced_rung(args)
+    _sequence_rung(args, config)
     mesh = _build_mesh(args, config)
     if args.prepared_dir:
         return _run_prepared(args, config, mesh)
@@ -440,8 +456,16 @@ def _fit_and_summarize(
         if item_tokens is not None:
             np.savez_compressed(ckpt_dir / "item_tokens.npz", tokens=item_tokens)
 
+    histories = None
+    if config.model.user_tower == "sequence":
+        from twotower_tpu_torch.data.sequences import UserHistories
+        from twotower_tpu_torch.models.two_tower import padded_rows
+
+        histories = UserHistories(train_cols.user_idx, train_cols.item_idx, num_users,
+                                  config.model.sequence.max_window, padded_rows(num_items) - 1,
+                                  device=args.device)
     evaluator = Evaluator(config, num_items, item_tokens=item_tokens, device=args.device,
-                          mesh=mesh)
+                          mesh=mesh, histories=histories)
     val_u, val_i = val_arrays
     cap = getattr(args, "val_rows", None)
     if cap and cap < len(val_u):
@@ -470,7 +494,14 @@ def _fit_and_summarize(
             device=args.device,
             mesh=mesh,
         )
-        if args.device_loop:
+        if config.model.user_tower == "sequence":
+            from twotower_tpu_torch.data.sequences import StreamDataset
+
+            train_input = StreamDataset(train_cols.user_idx, train_cols.item_idx, config,
+                                        device=trainer.device)
+            logger.info("sequence tower: %d slots in %d streams of %d", train_input.num_examples,
+                        train_input.num_steps, train_input.batch_size)
+        elif args.device_loop:
             train_input = DeviceDataset.from_interactions(
                 train_cols, config.training.batch_size, device=trainer.device
             )

@@ -499,7 +499,7 @@ class CheckpointManager:
             state_to_tree(state),
         )
         ready = None
-        if state.params["user_embedding"].is_cuda:
+        if state.params["item_embedding"].is_cuda:
             # The worker copies on its own thread (another current stream):
             # it waits for this event, recorded after the clones.
             ready = torch.cuda.Event()

@@ -20,6 +20,9 @@ spans and marks:
 - ``StepPhases``: CUDA timing events at the phase boundaries of a train
   step captured as a CUDA graph (``step_phase``), replayed with that graph;
   read as milliseconds of its last replay, also in ``snapshot()``.
+- Counters (``counter``): float32 tensors on the device that their owner
+  adds into in line with its work (``moe.routed_tokens``: each MoE layer's
+  routed slots per expert), read once each by ``counters()``.
 - ``StepTimer``: lightweight host-side step timing with percentile summary,
   cheap enough to leave on in production loops.
 - ``GracefulShutdown``: SIGTERM/SIGINT handler for preemption-aware training
@@ -84,14 +87,17 @@ class Recorder:
     def __init__(self, limit: int = RECORD_LIMIT):
         self.limit = limit
         self.phases: StepPhases | None = None
+        self.counters: dict[str, torch.Tensor] = {}
         self._ids = itertools.count(1)
         self.reset()
 
     def reset(self) -> None:
-        """Clear the records (the phase events stay: the graph that records
-        them still replays)."""
+        """Clear the records and zero the counters (the phase events stay:
+        the graph that records them still replays)."""
         self._rows: list[tuple] = []
         self.dropped = 0
+        for t in self.counters.values():
+            t.zero_()
 
     def new_id(self) -> int:
         return next(self._ids)
@@ -238,14 +244,22 @@ class StepPhases:
     replays record them again. ``replays`` counts those replays;
     ``times_ms`` turns the last one's events into milliseconds, waiting for
     its end: read it off the step's path (an epoch's end, after a trace).
-    ``event`` makes one event (tests pass a fake)."""
+    ``event`` makes one event (tests pass a fake).
+
+    ``boundaries=None`` takes the boundaries in whatever order and number
+    the step marks them, from ``gather`` to ``end`` (the sequence tower's
+    step marks each layer's parts, and the gradient marks them again on
+    its way back): ``times_ms`` then sums the phases of one name."""
 
     BOUNDARIES = (*STEP_PHASES, "end")
 
-    def __init__(self, event=None):
+    def __init__(self, event=None, boundaries: tuple | None = BOUNDARIES):
         if event is None:
             event = functools.partial(torch.cuda.Event, enable_timing=True, external=True)
-        self.events = [event() for _ in self.BOUNDARIES]
+        self._event = event
+        self.fixed = boundaries is not None
+        self.names = list(boundaries) if self.fixed else []
+        self.events = [event() for _ in self.names]
         self.reached = 0
         self.replays = 0
 
@@ -253,29 +267,41 @@ class StepPhases:
     def capturing(self):
         """Record the boundaries the step marks in this thread, in order."""
         self.reached = 0
+        if not self.fixed:
+            self.names, self.events = [], []
         _CAPTURING.phases = self
         try:
             yield self
         finally:
             _CAPTURING.phases = None
-        if self.reached != len(self.BOUNDARIES):
+        if self.fixed and self.reached != len(self.names):
             raise RuntimeError(f"the step marked {self.reached} of its "
-                               f"{len(self.BOUNDARIES)} phase boundaries")
+                               f"{len(self.names)} phase boundaries")
+        if not self.fixed and (self.names[:1] != ["gather"] or self.names[-1:] != ["end"]):
+            raise RuntimeError(f"the step's phase boundaries {self.names} do not run from "
+                               "'gather' to 'end'")
 
     def boundary(self, name: str) -> None:
-        want = self.BOUNDARIES[self.reached] if self.reached < len(self.BOUNDARIES) else None
-        if name != want:
-            raise RuntimeError(f"step phase boundary {name!r} where {want!r} was due")
+        if self.fixed:
+            want = self.names[self.reached] if self.reached < len(self.names) else None
+            if name != want:
+                raise RuntimeError(f"step phase boundary {name!r} where {want!r} was due")
+        else:
+            self.names.append(name)
+            self.events.append(self._event())
         self.events[self.reached].record()
         self.reached += 1
 
     def times_ms(self) -> dict[str, float]:
-        """Each phase's milliseconds in the last replay (empty before one)."""
+        """Each phase's milliseconds in the last replay (empty before one),
+        summed over the phases of one name."""
         if not self.replays:
             return {}
         self.events[-1].synchronize()
-        return {name: a.elapsed_time(b)
-                for name, a, b in zip(STEP_PHASES, self.events, self.events[1:])}
+        out: dict[str, float] = {}
+        for name, a, b in zip(self.names, self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
 
 
 _CAPTURING = threading.local()
@@ -288,6 +314,29 @@ def step_phase(name: str) -> None:
     phases = getattr(_CAPTURING, "phases", None)
     if phases is not None:
         phases.boundary(name)
+
+
+def counter(name: str, shape: tuple, device) -> torch.Tensor:
+    """The counter ``name``: a float32 tensor of ``shape`` on ``device``,
+    zero when first asked for (or when asked for at another shape or
+    device), which its owner adds into on the device, in line with its
+    work (a captured graph keeps adding into the same tensor). Counters
+    count whether or not tracing is on; ``counters()`` reads each once, and
+    ``reset()`` zeroes them."""
+    t = RECORDER.counters.get(name)
+    if t is None or tuple(t.shape) != tuple(shape) or t.device != torch.device(device):
+        t = RECORDER.counters[name] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return t
+
+
+def counters() -> dict[str, list]:
+    """Every counter's values, read from the device once each."""
+    return {k: t.tolist() for k, t in RECORDER.counters.items()}
+
+
+def capturing_phases() -> StepPhases | None:
+    """The ``StepPhases`` capturing in this thread, if any."""
+    return getattr(_CAPTURING, "phases", None)
 
 
 def register_phases(phases: StepPhases) -> None:
