@@ -100,9 +100,12 @@
    once with --device cpu: per-epoch losses rtol 1e-4; validation and test
    metrics within one rank flip (1/rows). Three runs: sparse adam,
    --synthetic-text (512 buckets, 8 tokens), and adamw with weight decay. Then topk_mips_twopass on the
-   card against one full torch.topk of the whole [B, N] score matrix at
-   B=4096, N=100,000, D=128, k=100: ids equal except between exactly tied
-   scores, scores rtol 1e-6.
+   card (the float32 prefilter's kernels, one launch of each) against the
+   float64 product's top-k at B=4096, N=100,000, D=128, k=100: scores
+   within TWOPASS_REL x |q|.|c| (48 MMAs a score, each rounding toward zero
+   by at most a float32 ulp, and the TF32 split's 3 x 2^-22) of their ids'
+   float64 scores and of the float64 top-k's, ids k distinct and equal
+   outside scores tied within twice that.
 6b. The approx search's block-maxima prefilter over a bfloat16 corpus
    (ops/prefilter.py, ops/csrc/search_prefilter.cu) at c3_validate's batch
    (4096 query rows over 1,145,145 items, D=128, k=100), at serving's one
@@ -123,8 +126,23 @@
    and back to back), the select's, the whole search's, the plain
    versions' and the replaced search's, beside the bound (2 B N D at 989
    TFLOP/s or the corpus, queries and top-k bytes at 3.35 TB/s, the
-   larger). Prints one {"prefilter": ...} JSON line. python3 chip_smoke.py
-   --prefilter-only runs phases 1, 2 and 6b alone (no result line).
+   larger). Prints one {"prefilter": ...} JSON line. Then the exact search's
+   float32 prefilter (ops/prefilter_f32.py, ops/csrc/search_prefilter_f32.cu)
+   at c3_eval_exact's batch (4096 x 1,145,145, D=128, k=100) and at one
+   request over the same corpus: one launch of each wrapper a
+   topk_mips_twopass call; its top-k against the float64 product's as
+   above; each chosen block's largest candidate score equal to its maximum
+   bit for bit; a row's maxima and candidates alike alone and in the batch;
+   both kernels against their plain versions (three float32 products of the
+   split operands) within twice TWOPASS_REL of a bound on |q|.|c|; a depth
+   of 12 refused at launch; each kernel's device ms (one call, and back to
+   back), the select's, the whole search's, the plain versions' and the
+   search it replaced (ops/topk.py's _twopass_core: the float32 product of
+   131,072-row chunks, block max, merge), beside the bound (2 B N D at
+   495/3 TFLOP/s or the corpus, queries and top-k bytes at 3.35 TB/s, the
+   larger). Prints one {"prefilter_f32": ...} JSON line. python3
+   chip_smoke.py --prefilter-only runs phases 1, 2 and 6b (both searches and
+   the two-pass check of phase 6) alone (no result line).
 7. The slice at full width: train-model with the default model (embedding
    128, towers [512,256,128], bf16 compute, dropout 0.1, log q, lazy-Adam
    tables, host dedup), batch 4096, two epochs, validation every epoch, on
@@ -213,8 +231,9 @@
    train-model --config ... --exec auto --val-rows 80000 --override
    training.epochs=2 on the 8M artifact: it must choose, log and report
    the device loop; launch counts set to 0 just before and read just after
-   equal its 1,564 steps; every epoch validated by topk_mips_approx over
-   the bfloat16 corpus, no other search; epoch 2 improves, its save is
+   equal its 1,564 steps, the float32 prefilter's 0; every epoch validated
+   by topk_mips_approx over the bfloat16 corpus, no other search; epoch 2
+   improves, its save is
    skipped by the accept interval (a spy on CheckpointManager.save waits
    for the save in flight first, so the interval is the one rule left to
    skip it) and the end-of-fit backstop persists the final state, which
@@ -222,7 +241,9 @@
    validation and of each save. (b) evaluate-model with
    retrieval.eval_exact=true retrieval.eval_corpus_dtype=float32 --rows
    80000 restores best_step()'s step and searches topk_mips_twopass over
-   the float32 corpus; on the 80,000 validation rows train-model scored,
+   the float32 corpus, launch counts set to 0 just before: one launch of
+   each float32 prefilter kernel a 4,096-row evaluation batch, the
+   bfloat16 prefilter none; on the 80,000 validation rows train-model scored,
    evaluate-model's approx metrics equal the last epoch's within one rank
    flip, printed beside the exact ones. (c) train-model --exec stream for
    one epoch on the 1M artifact: the stream rung, 97 steps in segments of
@@ -379,7 +400,10 @@
    7e's and 7f's train-model runs, in phase 7g's --exec auto and --exec
    stream runs, in phase 7h's train stage (launches_oracle_config3), and in
    phase 10's mesh runs (10b's Trainer, device-loop epoch and both
-   train-model --mesh runs; rank 1's in 10c's 2x1 and 1x2).
+   train-model --mesh runs; rank 1's in 10c's 2x1 and 1x2). The four
+   prefilter rows carry their times from phase 6b and their launches in
+   phase 8's serving, the bfloat16 pair's in 7g's --exec auto and --exec
+   stream runs, the float32 pair's in 7g's exact evaluate-model.
    Then one JSON line of kernels, the median step time, and the last line
    {"ok": true, "device": {...}}.
 
@@ -415,6 +439,7 @@ TEMP = 0.1
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
 # tensor cores, TF32 on the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_F32_ACCURATE_FLOPS = 495e12 / 3  # three TF32 tensor-core passes
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -434,10 +459,21 @@ KERNELS = {
     # The approx search's prefilter over a bfloat16 corpus (phase 6b).
     "search_prefilter_maxima": ("prefilter_maxima_kernel", "search_prefilter.cu"),
     "search_prefilter_candidates": ("prefilter_candidates_kernel", "search_prefilter.cu"),
+    # The exact search's prefilter over a float32 corpus (phase 6b), and its
+    # variants past a depth of 128 (reported, not rows of their own).
+    "search_prefilter_f32_maxima": ("prefilter_f32_maxima_kernel", "search_prefilter_f32.cu"),
+    "search_prefilter_f32_candidates": ("prefilter_f32_candidates_kernel",
+                                        "search_prefilter_f32.cu"),
+    "search_prefilter_f32_maxima_deep": ("prefilter_f32_maxima_deep_kernel",
+                                         "search_prefilter_f32.cu"),
+    "search_prefilter_f32_candidates_deep": ("prefilter_f32_candidates_deep_kernel",
+                                             "search_prefilter_f32.cu"),
 }
 TENSOR_CORE_KERNELS = ("fused_loss_fwd", "fused_loss_fwd_deep", "fused_loss_bwd_du",
                        "fused_loss_bwd_dv", "search_prefilter_maxima",
-                       "search_prefilter_candidates")
+                       "search_prefilter_candidates", "search_prefilter_f32_maxima",
+                       "search_prefilter_f32_candidates", "search_prefilter_f32_maxima_deep",
+                       "search_prefilter_f32_candidates_deep")
 CHECK_SHAPES = [  # batch, dim, rows, row offset, unit-norm rows
     (MAIN_B, MAIN_D, MAIN_B, 0, True),
     (1000, MAIN_D, 1000, 0, False),
@@ -1451,28 +1487,81 @@ def check_cli_card_vs_cpu(label: str = "sparse adam", flags=(), overrides=()):
         f"{sum_c['test']['recall@10']}")
 
 
+# The float32 prefilter's scores against the float64 product, relative to
+# |q| . |c| (the sum of the products' magnitudes): 48 MMAs a score at D = 128
+# (16 k-steps of 3 passes), each rounding toward zero by at most one float32
+# ulp of a partial sum, and the split's lo.lo and roundings of lo, about
+# 3 x 2^-22 of each product.
+TWOPASS_REL = 48 * 2.0**-23 + 3 * 2.0**-22
+
+
+def exact_topk_f64(q, corpus, k: int, rows: int = 256):
+    """The float64 product's top-k of each query row, ``(scores, ids)``, in
+    blocks of ``rows`` query rows."""
+    vals, ids = [], []
+    cd = corpus.double()
+    for lo in range(0, q.shape[0], rows):
+        s = q[lo:lo + rows].double() @ cd.T
+        v, i = torch.topk(s, k, dim=1)
+        vals.append(v)
+        ids.append(i)
+        del s
+    return torch.cat(vals), torch.cat(ids)
+
+
+def row_scores_f64(q, corpus, ids):
+    """Each query row's float64 scores of its ids ``[B, k]``, and ``|q| . |c|``
+    there."""
+    rows = corpus[ids].double()
+    return (torch.einsum("bd,bkd->bk", q.double(), rows),
+            torch.einsum("bd,bkd->bk", q.double().abs(), rows.abs()))
+
+
+def check_f32_topk(q, corpus, k: int, vals, ids, what) -> dict:
+    """``(vals, ids)``, a top-k of the float32 prefilter, against the float64
+    product's: each score within ``TWOPASS_REL`` x ``|q| . |c|`` of its id's
+    float64 score and of the float64 top-k's; ids k distinct real rows, equal
+    to the float64 top-k's outside scores tied within twice that."""
+    ref_vals, ref_ids = exact_topk_f64(q, corpus, k)
+    own, mag = row_scores_f64(q, corpus, ids)
+    ref_own, ref_mag = row_scores_f64(q, corpus, ref_ids)
+    if not bool(((vals.double() - own).abs() <= TWOPASS_REL * mag).all()):
+        raise RuntimeError(f"{what}: a score past {TWOPASS_REL} |q||c| of its float64 score")
+    if not bool(((vals.double() - ref_vals).abs() <= TWOPASS_REL * ref_mag).all()):
+        raise RuntimeError(f"{what}: a score past {TWOPASS_REL} |q||c| of the float64 top-k's")
+    srt = ids.sort(dim=1).values
+    if ids.min() < 0 or ids.max() >= corpus.shape[0] or bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise RuntimeError(f"{what}: ids are not k distinct real corpus rows")
+    differ = ids != ref_ids
+    tie = (own - ref_own).abs()[differ]
+    if bool((tie > 2 * TWOPASS_REL * ref_mag[differ]).any()):
+        raise RuntimeError(f"{what}: ids differ at scores {float(tie.max())} apart")
+    return {"score_max_rel": float(((vals.double() - own).abs() / mag).max()),
+            "ids_differ": int(differ.sum()),
+            "tie_gap_max": float(tie.max()) if differ.any() else 0.0}
+
+
 def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
-    """topk_mips_twopass against one full torch.topk of the [B, N] scores."""
-    from twotower_tpu_torch.ops.topk import float32_products, topk_mips_twopass
+    """topk_mips_twopass on the card (the float32 prefilter's kernels, one
+    launch each) against the float64 product's top-k (check_f32_topk)."""
+    from twotower_tpu_torch.ops import prefilter_f32
+    from twotower_tpu_torch.ops.topk import topk_mips_twopass
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, d, generator=gen, device="cuda")
     c = torch.randn(n, d, generator=gen, device="cuda")
+    before = (prefilter_f32.block_maxima_f32.launches,
+              prefilter_f32.block_candidates_f32.launches)
     vals, ids = topk_mips_twopass(q, c, k)
-    with float32_products():
-        ref_vals, ref_ids = torch.topk(q @ c.T, k, dim=1)
-    torch.testing.assert_close(vals, ref_vals, rtol=1e-6, atol=0)
-    differ = ids != ref_ids
-    # Where the ids differ the scores must be tied: each id's own score.
-    with float32_products():
-        own = torch.einsum("bkd,bd->bk", c[ids[differ.any(1)]], q[differ.any(1)])
-        own_ref = torch.einsum("bkd,bd->bk", c[ref_ids[differ.any(1)]], q[differ.any(1)])
-    torch.testing.assert_close(own[differ[differ.any(1)]], own_ref[differ[differ.any(1)]],
-                               rtol=1e-6, atol=0)
-    rel = float(((vals - ref_vals).abs() / ref_vals.abs()).max())
-    log(f"  two-pass top-{k} at B={b} N={n} D={d}: scores within rtol 1e-6 of one full "
-        f"torch.topk (max relative difference {rel}); {int(differ.sum())} of "
-        f"{differ.numel()} ids differ (tied scores)")
+    launches = (prefilter_f32.block_maxima_f32.launches - before[0],
+                prefilter_f32.block_candidates_f32.launches - before[1])
+    if launches != (1, 1):
+        raise RuntimeError(f"two-pass: float32 prefilter launches {launches}, not (1, 1)")
+    got = check_f32_topk(q, c, k, vals, ids, f"two-pass at B={b} N={n}")
+    log(f"  two-pass top-{k} at B={b} N={n} D={d}: scores within {TWOPASS_REL:.3g} |q||c| "
+        f"of the float64 product's (largest {got['score_max_rel']:.3g}); {got['ids_differ']} of "
+        f"{ids.numel()} ids differ from its top-k, at float64 scores at most "
+        f"{got['tie_gap_max']:.3g} apart")
 
 
 # Phase 6b's shapes: query rows, corpus rows, depth, k, real corpus rows
@@ -1612,17 +1701,113 @@ def check_prefilter(shapes=PREFILTER_SHAPES) -> list[dict]:
     return out
 
 
+# Phase 6b's float32 shapes (the exact search's prefilter): c3_eval_exact's
+# batch, and one request over the same corpus.
+PREFILTER_F32_SHAPES = [
+    (4096, 1_145_145, 128, 100),
+    (1, 1_145_145, 128, 100),
+]
+
+
+def check_prefilter_f32(shapes=PREFILTER_F32_SHAPES) -> list[dict]:
+    """Phase 6b's float32 shapes (see the module docstring): returns a row a
+    shape."""
+    from twotower_tpu_torch.ops import prefilter, prefilter_f32
+    from twotower_tpu_torch.ops.topk import _twopass_core, topk_mips_twopass
+
+    block = prefilter_f32.BLOCK
+    out = []
+    for b, n, d, k in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(b + n + d + k + 1)
+        q = torch.randn(b, d, generator=gen, device="cuda")
+        corpus = torch.randn(n, d, generator=gen, device="cuda")
+        before = (prefilter_f32.block_maxima_f32.launches,
+                  prefilter_f32.block_candidates_f32.launches)
+        vals, ids = topk_mips_twopass(q, corpus, k)
+        torch.cuda.synchronize()
+        launches = (prefilter_f32.block_maxima_f32.launches - before[0],
+                    prefilter_f32.block_candidates_f32.launches - before[1])
+        if launches != (1, 1):
+            raise RuntimeError(f"{(b, n, d, k)}: kernel launches a call {launches}, not (1, 1)")
+        row = {"b": b, "n": n, "d": d, "k": k,
+               **check_f32_topk(q, corpus, k, vals, ids, f"float32 prefilter {(b, n, d, k)}")}
+        # The kernels on their own: each kept block's largest score bit for
+        # bit its maximum; a row's maxima and candidates alike alone and in
+        # the batch; both against their plain versions on the same inputs.
+        maxima = prefilter_f32.block_maxima_f32(q, corpus, n)
+        chosen = prefilter.top_blocks(maxima, k)
+        cand = prefilter_f32.block_candidates_f32(q, corpus, n, chosen)
+        if not torch.equal(cand.view(b, k, block).amax(dim=2), maxima.gather(1, chosen)):
+            raise RuntimeError(f"{(b, n, d, k)}: a kept block's largest score is not its maximum")
+        r = b // 2
+        one = q[r:r + 1].contiguous()
+        if not (torch.equal(prefilter_f32.block_maxima_f32(one, corpus, n), maxima[r:r + 1])
+                and torch.equal(prefilter_f32.block_candidates_f32(
+                    one, corpus, n, chosen[r:r + 1].contiguous()), cand[r:r + 1])):
+            raise RuntimeError(f"{(b, n, d, k)}: row {r}'s scores differ alone and in the batch")
+        chunk = max(block, (1 << 26) // b // block * block)
+        mag = q.abs().sum(dim=1, keepdim=True) * corpus.abs().max()  # >= |q| . |c|
+        plain = prefilter_f32.block_maxima_plain(q, corpus, n, chunk)
+        if not bool(((maxima - plain).abs() <= 2 * TWOPASS_REL * mag).all()):
+            raise RuntimeError(f"{(b, n, d, k)}: the maxima kernel is off its plain version")
+        row["maxima_plain_max_abs"] = float((maxima - plain).abs().max())
+        del plain
+        plain = prefilter_f32.block_candidates_plain(q, corpus, n, chosen, chunk)
+        if not (torch.equal(torch.isinf(cand), torch.isinf(plain)) and bool(
+                ((cand - plain).nan_to_num(0.0, 0.0, 0.0).abs() <= 2 * TWOPASS_REL * mag).all())):
+            raise RuntimeError(f"{(b, n, d, k)}: the candidates kernel is off its plain version")
+        del plain
+        flops = 2 * b * n * d
+        nbytes = n * d * 4 + b * d * 4 + b * k * 12
+        bound_ms = max(flops / PEAK_F32_ACCURATE_FLOPS, nbytes / PEAK_BYTES) * 1e3
+
+        def plain_both():
+            prefilter_f32.block_maxima_plain(q, corpus, n, chunk)
+            prefilter_f32.block_candidates_plain(q, corpus, n, chosen, chunk)
+
+        row.update({
+            "maxima_ms": time_ms(lambda: prefilter_f32.block_maxima_f32(q, corpus, n)),
+            "maxima_ms_batched": time_ms_batched(
+                lambda: prefilter_f32.block_maxima_f32(q, corpus, n)),
+            "candidates_ms": time_ms(lambda: prefilter_f32.block_candidates_f32(
+                q, corpus, n, chosen)),
+            "candidates_ms_batched": time_ms_batched(lambda: prefilter_f32.block_candidates_f32(
+                q, corpus, n, chosen)),
+            "select_ms": time_ms(lambda: prefilter.top_blocks(maxima, k)),
+            "search_ms": time_ms(lambda: topk_mips_twopass(q, corpus, k)),
+            "plain_ms": time_ms(plain_both, reps=2, warm=1),
+            "library_ms": time_ms(lambda: _twopass_core(q, corpus, k, 131072, block, n), reps=5,
+                                  warm=1),
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if flops / PEAK_F32_ACCURATE_FLOPS >= nbytes / PEAK_BYTES
+            else "bytes",
+        })
+        row["share_of_bound"] = bound_ms / row["search_ms"]
+        row["maxima_share_of_bound_batched"] = bound_ms / row["maxima_ms_batched"]
+        del corpus, maxima, cand
+        torch.cuda.empty_cache()
+        log(f"  prefilter_f32 {json.dumps(row)}")
+        out.append(row)
+    refused = prefilter_f32._lib().tt_prefilter_f32_maxima(None, None, 1, 1, 12, None, None)
+    if refused == 0:
+        raise RuntimeError("the float32 maxima kernel took a depth of 12 (not a multiple of 8)")
+    log(f"  a depth of 12 refused at launch: CUDA error {refused}")
+    return out
+
+
 def eval_batch_times(ckpt: Path, card: str):
     """Device ms of one evaluation batch (EVAL_B rows) over the encoded
-    corpus of the slice's checkpoint, beside its bound and one float32
-    torch.matmul of the same shape."""
+    corpus of the slice's checkpoint, beside its bound (at the float32
+    prefilter's three TF32 passes where the search takes it) and the
+    two-pass scan that prefilter replaced."""
     from twotower_tpu_torch.config import load_config_for_checkpoint
     from twotower_tpu_torch.data.vocab import VocabPair
     from twotower_tpu_torch.evaluation import Evaluator
     from twotower_tpu_torch.evaluation.evaluate import restore_params
     from twotower_tpu_torch.evaluation.metrics import metrics_at_k
     from twotower_tpu_torch.models import two_tower
-    from twotower_tpu_torch.ops.topk import float32_products, topk_mips_twopass
+    from twotower_tpu_torch.ops import prefilter_f32
+    from twotower_tpu_torch.ops.topk import _twopass_core, topk_mips_twopass
 
     cfg = load_config_for_checkpoint(ckpt)
     vocab = VocabPair.load(ckpt / "vocab")
@@ -1643,15 +1828,19 @@ def eval_batch_times(ckpt: Path, card: str):
         ms = time_ms(batch, reps=10)
         profile_device(lambda i: batch(), 3, "batch")
         u = two_tower.embed_users(params, users, cfg.model)
-        with float32_products():
-            matmul_ms = time_ms(lambda: u @ corpus.T, reps=10)
+        chunk = ev.corpus_chunk_size // prefilter_f32.BLOCK * prefilter_f32.BLOCK
+        scan_ms = time_ms(lambda: _twopass_core(u, corpus, ev.max_k, chunk, prefilter_f32.BLOCK,
+                                                ni), reps=10)
     d = corpus.shape[1]
-    ops_ms = 2 * EVAL_B * ni * d / PEAK_F32_FLOPS * 1e3
+    kernels_route = prefilter_f32.applies(corpus, ev.max_k, ni)
+    peak, route = ((PEAK_F32_ACCURATE_FLOPS, "3xTF32") if kernels_route
+                   else (PEAK_F32_FLOPS, "f32 FMA"))
+    ops_ms = 2 * EVAL_B * ni * d / peak * 1e3
     bytes_ms = (ni * d + EVAL_B * d) * 4 / PEAK_BYTES * 1e3
     log(f"eval ms per {EVAL_B}-row batch over {ni} items (D={d}, k={ev.max_k}): {ms:.4f}; "
         f"bound {max(ops_ms, bytes_ms):.4f} ({'operations' if ops_ms >= bytes_ms else 'bytes'}: "
-        f"f32 FMA {ops_ms:.4f}, bytes {bytes_ms:.4f}); one float32 torch.matmul "
-        f"{matmul_ms:.4f} ({card})")
+        f"{route} {ops_ms:.4f}, bytes {bytes_ms:.4f}); the two-pass scan the float32 "
+        f"prefilter replaced {scan_ms:.4f} ({card})")
 
 
 @contextlib.contextmanager
@@ -2265,8 +2454,8 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
     """train-model --config LIFECYCLE_CONFIG --exec ``rung`` in process, with
     the launch counts set to 0 just before and read just after (the loss
     kernels' must equal its steps; the validation's prefilter launches one
-    of each of its kernels at a time), every epoch validated by the approx search over the
-    bfloat16 corpus, and its log, saves, searches and segments recorded in
+    of each of its kernels at a time, the float32 prefilter none), every
+    epoch validated by the approx search over the bfloat16 corpus, and its log, saves, searches and segments recorded in
     ``into``. Returns its summary."""
     from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.training.train import main as train_main
@@ -2303,10 +2492,15 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
                            "search over the bfloat16 corpus")
     if not all("val/recall@10" in r for r in into["records"]):
         raise RuntimeError(f"lifecycle {rung}: an epoch without validation")
-    search = list(into["search_launches"].values())
-    if not (search[0] == search[1] > 0):
-        raise RuntimeError(f"lifecycle {rung}: validation's prefilter launches "
-                           f"{into['search_launches']}: none, or not one of each kernel a launch")
+    search = into["search_launches"]
+    if not (search["block_maxima"] == search["block_candidates"] > 0):
+        raise RuntimeError(f"lifecycle {rung}: validation's prefilter launches {search}: none, "
+                           "or not one of each kernel a launch")
+    # The float32 prefilter serves the exact search alone, which train-model
+    # does not run here (the searches above): its counts stay 0.
+    if search["block_maxima_f32"] or search["block_candidates_f32"]:
+        raise RuntimeError(f"lifecycle {rung}: train-model launched the float32 prefilter "
+                           f"{search}")
     return summary
 
 
@@ -2318,6 +2512,7 @@ def run_lifecycle(card: str) -> dict:
     from twotower_tpu_torch.evaluation import Evaluator
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
     from twotower_tpu_torch.models import two_tower
+    from twotower_tpu_torch.ops import kernels
     from twotower_tpu_torch.ops.topk import topk_mips_twopass
     from twotower_tpu_torch.serving.api import build_service
     from twotower_tpu_torch.utils.checkpoint import CheckpointManager
@@ -2377,14 +2572,26 @@ def run_lifecycle(card: str) -> dict:
                str(prepared), "--rows", str(LIFECYCLE_HELD)]
     t = time.perf_counter()
     seen, searched = [], []
+    kernels.reset_launch_counts()
     with evaluated_users(seen), searches_watched(searched):
         test = run_cli(eval_main, ev_args + ["--subset", "test", "--override", *EXACT_EVAL])
     t_eval = time.perf_counter() - t
+    eval_launches = {w.__name__: w.launches for w in kernels.SEARCH_WRAPPERS}
     if test["checkpoint_step"] != best:
         raise RuntimeError(f"evaluate-model restored step {test['checkpoint_step']}, "
                            f"best_step() {best}")
     if set(searched) != {("topk_mips_twopass", "torch.float32", LIFECYCLE_ITEMS)}:
         raise RuntimeError(f"evaluate-model with the exact overrides searched {set(searched)}")
+    # One search an Evaluator batch of EVAL_B rows, each one launch of each
+    # float32 kernel at this corpus (its batch fits one launch); the bfloat16
+    # prefilter none.
+    batches = -(-test["rows"] // EVAL_B)
+    if not (eval_launches["block_maxima_f32"] == eval_launches["block_candidates_f32"]
+            == len(searched) == batches) or eval_launches["block_maxima"] \
+            or eval_launches["block_candidates"]:
+        raise RuntimeError(f"evaluate-model with the exact overrides: {len(searched)} searches "
+                           f"of {test['rows']} rows launched {eval_launches}, not one of each "
+                           f"float32 kernel a batch ({batches})")
     val_approx = run_cli(eval_main, ev_args + ["--subset", "val"])["metrics"]
     val_exact = run_cli(eval_main, ev_args + ["--subset", "val", "--override",
                                               *EXACT_EVAL])["metrics"]
@@ -2393,7 +2600,9 @@ def run_lifecycle(card: str) -> dict:
                            f"last epoch's {records[-1]['val/recall@10']}")
     log(f"  evaluate-model (exact overrides): step {test['checkpoint_step']} = best_step(), "
         f"{test['rows']} test rows, recall@10 {test['metrics']['recall@10']}, ndcg@10 "
-        f"{test['metrics']['ndcg@10']}; {t_eval:.1f} s ({card})")
+        f"{test['metrics']['ndcg@10']}; {t_eval:.1f} s; float32 prefilter launches "
+        f"{eval_launches['block_maxima_f32']} / {eval_launches['block_candidates_f32']} "
+        f"({batches} batches) ({card})")
     log(f"  the same {LIFECYCLE_HELD} val rows: recall@10 approx bfloat16 "
         f"{val_approx['recall@10']} (the last epoch's validation, within one rank flip) / "
         f"exact float32 {val_exact['recall@10']}; ndcg@10 {val_approx['ndcg@10']} / "
@@ -2463,6 +2672,7 @@ def run_lifecycle(card: str) -> dict:
         "launches_stream": row_launches(stream["launches"]),
         "search_launches_auto": auto["search_launches"],
         "search_launches_stream": stream["search_launches"],
+        "search_launches_eval_exact": eval_launches,
         "auto": {"steps": steps, "seconds": auto["seconds"], "saves": auto["saves"],
                  "val_recall_at_10": [r["val/recall@10"] for r in records],
                  "examples_per_sec": [r["examples_per_sec"] for r in records],
@@ -3073,13 +3283,19 @@ def search_bound_ms(index, batch: int) -> tuple[float, str]:
     """The least time of one search: the larger of its bytes (the valid
     corpus rows and their scales read once, queries read and [B, k] results
     written once) at 3.35 TB/s, and its products (2 B N D) at the corpus
-    dtype's dense peak."""
+    dtype's dense peak, or at three TF32 passes' where the exact search
+    takes the float32 prefilter."""
+    from twotower_tpu_torch.ops import prefilter_f32
+
     n, d = index.num_items, index.corpus.shape[1]
     nbytes = n * d * index.corpus.element_size() + batch * d * 4 + batch * SERVE_K * 12
     if index.corpus_scale is not None and index.corpus_scale.dim():
         nbytes += n * 4
     bytes_ms = nbytes / PEAK_BYTES * 1e3
-    ops_ms = 2 * batch * n * d / PEAK_BY_DTYPE[index.corpus.dtype] * 1e3
+    peak = PEAK_BY_DTYPE[index.corpus.dtype]
+    if index.exact and prefilter_f32.applies(index.corpus, SERVE_K, n):
+        peak = PEAK_F32_ACCURATE_FLOPS
+    ops_ms = 2 * batch * n * d / peak * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -4189,6 +4405,9 @@ def main() -> int:
     if sys.argv[1:] == ["--prefilter-only"]:  # a partial run: phases 1, 2 and 6b, no result line
         log("phase 6b: the approx search's prefilter")
         log(json.dumps({"prefilter": check_prefilter()}))
+        log("phase 6b: the exact search's float32 prefilter")
+        check_twopass()
+        log(json.dumps({"prefilter_f32": check_prefilter_f32()}))
         log("phases 1, 2 and 6b passed (a partial run: no result line)")
         return 0
 
@@ -4248,6 +4467,9 @@ def main() -> int:
     log("phase 6b: the approx search's prefilter")
     prefilter_rows = check_prefilter()
     log(json.dumps({"prefilter": prefilter_rows}))
+    log("phase 6b: the exact search's float32 prefilter")
+    prefilter_f32_rows = check_prefilter_f32()
+    log(json.dumps({"prefilter_f32": prefilter_f32_rows}))
 
     log("phase 7: train-model and evaluate-model at full width")
     slice_launches, test_users, best_step, host_summary = run_slice(card)
@@ -4286,11 +4508,15 @@ def main() -> int:
     serve_launches = {w.__name__: w.launches
                       for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS}
     log(f"  launches of the hand-written kernels while serving: {serve_launches} (the loss's "
-        "none; the prefilter's one of each a launch of the bfloat16 corpus's searches)")
+        "none; each prefilter's one of each a launch of the bfloat16 and the exact float32 "
+        "corpus's searches)")
     if any(serve_launches[w.__name__] for w in kernels.WRAPPERS):
         raise RuntimeError(f"serving launched a loss kernel: {serve_launches}")
     if not (serve_launches["block_maxima"] == serve_launches["block_candidates"] > 0):
         raise RuntimeError(f"serving's bfloat16 searches launched the prefilter {serve_launches}")
+    if not (serve_launches["block_maxima_f32"] == serve_launches["block_candidates_f32"] > 0):
+        raise RuntimeError(f"serving's exact float32 searches launched the float32 prefilter "
+                           f"{serve_launches}")
     log(json.dumps({"serving": serving}))
 
     log("phase 8b: the native CPU index against the card's exact index")
@@ -4332,18 +4558,30 @@ def main() -> int:
         row["launches_mesh_gloo_2x1_rank1"] = mesh_two["2x1"]["launches_rank1"][row["name"]]
         row["launches_mesh_gloo_1x2_rank1"] = mesh_two["1x2"]["launches_rank1"][row["name"]]
     at_validate = prefilter_rows[0]  # c3_validate's batch
-    for name, wrapper, part in (("search_prefilter_maxima", "block_maxima", "maxima"),
-                                ("search_prefilter_candidates", "block_candidates", "candidates")):
+    at_eval = prefilter_f32_rows[0]  # c3_eval_exact's batch
+    # Phase 7g's launches: the bfloat16 pair's in train-model's validation,
+    # the float32 pair's in the exact evaluate-model (train-model's are 0).
+    bf16_lifecycle = {f"launches_lifecycle_{rung}": lifecycle[f"search_launches_{rung}"]
+                      for rung in ("auto", "stream")}
+    f32_lifecycle = {"launches_lifecycle_eval_exact": lifecycle["search_launches_eval_exact"]}
+    for name, wrapper, part, at, lifecycle_runs, replaces in (
+            ("search_prefilter_maxima", "block_maxima", "maxima", at_validate, bf16_lifecycle,
+             "topk_mips_approx's torch.topk over every score"),
+            ("search_prefilter_candidates", "block_candidates", "candidates", at_validate,
+             bf16_lifecycle, "topk_mips_approx's torch.topk over every score"),
+            ("search_prefilter_f32_maxima", "block_maxima_f32", "maxima", at_eval, f32_lifecycle,
+             "topk_mips_twopass's float32 product and block max over every score"),
+            ("search_prefilter_f32_candidates", "block_candidates_f32", "candidates", at_eval,
+             f32_lifecycle, "topk_mips_twopass's float32 product and block max over every score")):
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"twotower_tpu_torch/ops/csrc/{KERNELS[name][1]}",
-            "replaces": "no TPU kernel (topk_mips_approx's torch.topk over every score)",
+            "replaces": f"no TPU kernel ({replaces})",
             **report[name],
-            "ms_4096x1145145": at_validate[f"{part}_ms"],
-            "ms_batched_4096x1145145": at_validate[f"{part}_ms_batched"],
-            "launches_lifecycle_auto": lifecycle["search_launches_auto"][wrapper],
-            "launches_lifecycle_stream": lifecycle["search_launches_stream"][wrapper],
+            "ms_4096x1145145": at[f"{part}_ms"],
+            "ms_batched_4096x1145145": at[f"{part}_ms_batched"],
+            **{column: counts[wrapper] for column, counts in lifecycle_runs.items()},
             "launches_serve_model": serve_launches[wrapper],
         })
     log(json.dumps({"kernels": rows}))

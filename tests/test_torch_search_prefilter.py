@@ -281,18 +281,21 @@ def test_cuda_calls_run_with_the_inputs_card_current(monkeypatch):
                                            "tt_prefilter_scratch", "stream",
                                            "tt_prefilter_candidates"]
     assert all(device == q.device for _, device in calls)
-    assert [w.launches for w in kernels.SEARCH_WRAPPERS] == [n + 1 for n in before]
+    assert [w.launches for w in kernels.SEARCH_WRAPPERS] == [before[0] + 1, before[1] + 1,
+                                                             before[2], before[3]]
 
 
 def test_search_launch_counts_share_the_loss_kernels_reset():
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import kernels, prefilter_f32
 
-    assert kernels.SEARCH_WRAPPERS == (prefilter.block_maxima, prefilter.block_candidates)
+    assert kernels.SEARCH_WRAPPERS == (prefilter.block_maxima, prefilter.block_candidates,
+                                       prefilter_f32.block_maxima_f32,
+                                       prefilter_f32.block_candidates_f32)
     for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS:
         w.launches = 3
     assert set(kernels.LaunchRecord().counts) == set(kernels.WRAPPERS + kernels.SEARCH_WRAPPERS)
     kernels.reset_launch_counts()
-    assert [w.launches for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS] == [0] * 5
+    assert [w.launches for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS] == [0] * 7
 
 
 def test_cpu_tensors_never_reach_the_kernels(monkeypatch):

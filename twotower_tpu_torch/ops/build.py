@@ -29,7 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu", "search_prefilter.cu")
+SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu", "search_prefilter.cu",
+           "search_prefilter_f32.cu")
 
 build_logs: dict[str, str] = {}  # source -> nvcc's output (-Xptxas -v: registers, spills)
 

@@ -15,7 +15,8 @@ parallel, so dV has its own kernel that recomputes S from the saved ``lse``
 (deterministic, no atomics). Each wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
 counts its launches in ``<wrapper>.launches``, as do the approx search's
-prefilter wrappers (``SEARCH_WRAPPERS``, ``ops/prefilter.py``): one set of
+prefilter wrappers and their float32 twins (``SEARCH_WRAPPERS``,
+``ops/prefilter.py``, ``ops/prefilter_f32.py``): one set of
 counts, reset together by ``reset_launch_counts``. A launch made while a
 CUDA graph is captured does not run then: it is recorded in the
 ``record_launches()`` record open at the time, whose ``replayed()`` adds it
@@ -38,7 +39,7 @@ from functools import cache
 
 import torch
 
-from twotower_tpu_torch.ops import build, prefilter
+from twotower_tpu_torch.ops import build, prefilter, prefilter_f32
 from twotower_tpu_torch.ops.losses import NEG_INF, weighted_mean_metrics
 
 _INT32_MAX = 2**31 - 1
@@ -116,7 +117,8 @@ def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     ``hi = rna(x)`` and ``lo = rna(x - hi)``, where ``rna`` rounds a float32
     to TF32's 10 mantissa bits, to nearest with ties away from zero, as
     ``cvt.rna.tf32.f32`` does. ``hi.hi + hi.lo + lo.hi`` then keeps float32
-    accuracy. Only the tests use it."""
+    accuracy. The tests use it, and the float32 prefilter's plain versions
+    (``ops/prefilter_f32.py``)."""
 
     def rna(t: torch.Tensor) -> torch.Tensor:
         bits = t.float().contiguous().view(torch.int32)
@@ -283,9 +285,11 @@ fused_fwd.launches = 0
 fused_bwd_du.launches = 0
 fused_bwd_dv.launches = 0
 WRAPPERS = (fused_fwd, fused_bwd_du, fused_bwd_dv)  # the loss's: one launch each a step
-# The approx search's over a bfloat16 corpus: one launch each a launch of
-# query rows (``prefilter.topk_prefilter``).
-SEARCH_WRAPPERS = (prefilter.block_maxima, prefilter.block_candidates)
+# The approx search's over a bfloat16 corpus and the two-pass search's over a
+# float32 one: one launch each a launch of query rows
+# (``prefilter.topk_prefilter``, ``prefilter_f32.topk_prefilter_f32``).
+SEARCH_WRAPPERS = (prefilter.block_maxima, prefilter.block_candidates,
+                   prefilter_f32.block_maxima_f32, prefilter_f32.block_candidates_f32)
 
 
 def reset_launch_counts() -> None:

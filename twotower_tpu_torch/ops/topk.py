@@ -8,14 +8,18 @@ corpus resident in float32, bfloat16 or int8 (``quantize_corpus``). These
 are XLA ops in the JAX package, not Pallas kernels, so they port to library
 products and ``torch.topk``, except the serving search over a large
 bfloat16 corpus, which goes through the block-maxima prefilter of
-``ops/prefilter.py`` (a kernel on the card that keeps the scores on chip).
+``ops/prefilter.py`` (a kernel on the card that keeps the scores on chip),
+and, on the card, the two-pass search over a large float32 corpus, which
+goes through its float32 twin, ``ops/prefilter_f32.py``.
 
 Scores are float32. A float32 corpus is multiplied with TF32 off (the JAX
 exact code asks for ``Precision.HIGHEST``): every product runs inside
 ``float32_products()``, which holds the process-wide TF32 switch off while
 any thread is inside and restores the caller's setting after (the switch is
 ``torch.backends.cuda.matmul.fp32_precision`` where PyTorch has it, else the
-legacy ``allow_tf32``).
+legacy ``allow_tf32``); the float32 prefilter's kernels instead take
+three TF32 tensor-core passes of split operands, which keep float32
+accuracy (``ops/prefilter_f32.py``).
 A bfloat16 corpus meets bfloat16 queries and accumulates in float32,
 returned in float32, never rounded to bfloat16 (``_scores``). An int8
 corpus meets per-row quantized queries in exact integer arithmetic.
@@ -36,7 +40,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from twotower_tpu_torch.ops import prefilter
+from twotower_tpu_torch.ops import prefilter, prefilter_f32
 from twotower_tpu_torch.utils import profiling
 
 
@@ -307,21 +311,41 @@ def topk_mips_twopass(
     second pass gathers the candidate rows and rescores them with a batched
     matrix-vector product, whose summation order differs from the chunk
     product's (about 1e-6 relative on the H100 at D=128, and some 13 GB of
-    gathered rows at B=4096, k=100); here the kept scores ARE the chunk
-    product's, so they equal ``query @ item_emb.T`` bit for bit and no row
-    is gathered. Ties exactly at the k-th score may resolve to another,
-    equally scored, id. Small corpora (at most ``4 k`` blocks) take the
-    plain scan.
+    gathered rows at B=4096, k=100); here the kept scores ARE the ones the
+    block maxima were taken over, and no row is gathered. On the CPU they
+    are the chunk product's, so they equal ``query @ item_emb.T`` bit for
+    bit. On the card a float32 corpus of depth a multiple of 8 up to 256
+    (``prefilter_f32.applies``, ``block`` 64) goes through the float32
+    prefilter's kernels inside the span ``search.twopass_prefilter``: three
+    TF32 tensor-core passes of split operands, float32-accurate but not
+    bit for bit a float32 product, each score independent of the batch and
+    of how it is cut into launches; ``chunk_size`` then only bounds the
+    memory (``batch x chunk_size`` float32 words, the scan's score buffer).
+    Ties exactly at the k-th score may resolve to another, equally scored,
+    id. Small corpora (at most ``4 k`` blocks) take the plain scan.
     """
     n = item_emb.shape[0]
     n_real = _check(n, k, num_valid)
     if block > chunk_size:
         raise ValueError(f"block={block} exceeds chunk_size={chunk_size}")
+    if _on_the_float32_prefilter(item_emb, k, block, n_real):
+        with profiling.span("search.twopass_prefilter"):
+            return prefilter_f32.topk_prefilter_f32(
+                query_emb, item_emb[:n_real].contiguous(), k, n_real,
+                query_emb.shape[0] * chunk_size)
     # A block multiple (the block reshape needs it).
     chunk_size = chunk_size // block * block
     if n_real <= 4 * k * block:
         return _topk_mips_scan(query_emb, item_emb, k, chunk_size, n_real)
     return _twopass_core(query_emb, item_emb, k, chunk_size, block, n_real)
+
+
+def _on_the_float32_prefilter(item_emb: torch.Tensor, k: int, block: int, n_real: int) -> bool:
+    """Whether ``topk_mips_twopass`` takes the float32 prefilter: a corpus on
+    the card that ``prefilter_f32.applies`` to, at its block of 64 rows. On
+    the CPU the search stays the chunked scan of the blocks."""
+    return (item_emb.device.type == "cuda" and block == prefilter_f32.BLOCK
+            and prefilter_f32.applies(item_emb, k, n_real))
 
 
 def _twopass_core(query, item_emb, k: int, chunk_size: int, block: int, n_real: int):

@@ -9,8 +9,9 @@ resolves to: float32 under ``tpu_mips_exact``, and bfloat16 (the default),
 int8 or int8_rowscale under ``tpu_mips``.
 
 Search: ``tpu_mips_exact`` is the evaluation's two-pass exact search
-(``topk_mips_twopass``, float32, TF32 off), so served results equal the
-evaluation's bit for bit. Every other ``index_type`` (``cpu_flat``
+(``topk_mips_twopass``, float32-accurate: float32 products with TF32 off on
+the CPU, the float32 prefilter's three TF32 passes on the card), so served
+results equal the evaluation's bit for bit. Every other ``index_type`` (``cpu_flat``
 included, as in the JAX index) takes ``topk_mips_approx``, which on this
 device is an exact top-k over the scores at the corpus's resident
 precision: the JAX default's ``lax.approx_max_k`` is a TPU primitive that
