@@ -126,10 +126,11 @@
    and back to back), the select's, the whole search's, the plain
    versions' and the replaced search's, beside the bound (2 B N D at 989
    TFLOP/s or the corpus, queries and top-k bytes at 3.35 TB/s, the
-   larger). Prints one {"prefilter": ...} JSON line. Then the exact search's
-   float32 prefilter (ops/prefilter_f32.py, ops/csrc/search_prefilter_f32.cu)
-   at c3_eval_exact's batch (4096 x 1,145,145, D=128, k=100) and at one
-   request over the same corpus: one launch of each wrapper a
+   larger). Prints one {"prefilter": ...} JSON line. Then, in the same
+   check (check_prefilter), the exact search's float32 prefilter (the same
+   module, ops/csrc/search_prefilter_f32.cu) at c3_eval_exact's batch (4096
+   x 1,145,145, D=128, k=100) and at one request over the same corpus: one
+   launch of each wrapper a
    topk_mips_twopass call; its top-k against the float64 product's as
    above; each chosen block's largest candidate score equal to its maximum
    bit for bit; a row's maxima and candidates alike alone and in the batch;
@@ -759,7 +760,7 @@ def check_sampling_small():
     outside its positives), and no fused-loss kernel runs."""
     from twotower_tpu_torch import bridge
     from twotower_tpu_torch.config import Config
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
     from twotower_tpu_torch.training.sparse import make_sparse_step_fn
@@ -809,7 +810,7 @@ def check_sampling_small():
         ds = DeviceDataset(users, items, 256, device="cuda")
         prog = make_epoch_fn(cfg, make_optimizer(cfg.training), steps, num_items=500,
                              device="cuda", capture=capture)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         prog.begin_epoch(state, ds.columns, 0, torch.as_tensor(log_q, device="cuda"), perm=perm)
         moments = state.table_state["item_embedding"]["moments"]
         positives = ds.columns["item_idx"].cpu().numpy()[perm].reshape(steps, 256)
@@ -909,7 +910,7 @@ def steps_card_vs_cpu(cfg, what: str, rng, *, negs: bool = False, tokens=None) -
     state within ``assert_state_close``. Returns the card's launch counts
     over the three steps."""
     from twotower_tpu_torch import bridge
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer
     from twotower_tpu_torch.training.loop import make_raw_step
 
@@ -929,7 +930,7 @@ def steps_card_vs_cpu(cfg, what: str, rng, *, negs: bool = False, tokens=None) -
         step = make_raw_step(cfg, opt, num_items=500)
         lq = torch.as_tensor(log_q, device=dev)
         tok = None if tokens is None else torch.as_tensor(tokens, device=dev)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         losses[dev] = []
         for b, neg in zip(batches, neg_ids):
             tb = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
@@ -955,7 +956,7 @@ def epoch_graph_vs_eager(cfg, what: str, rng, tokens=None) -> None:
     1e-4, state within ``assert_state_close``; the captured run launches
     each fused-loss kernel once a step."""
     from twotower_tpu_torch import bridge
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
@@ -974,7 +975,7 @@ def epoch_graph_vs_eager(cfg, what: str, rng, tokens=None) -> None:
         masks = cancelled_masks(opt)
         ds = DeviceDataset(users, items, 256, device="cuda")
         prog = make_epoch_fn(cfg, opt, steps, num_items=500, device="cuda", capture=capture)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = prog(state, ds.columns, 0, log_q, tok, perm=perm)
         runs[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
                          {w.__name__: w.launches for w in kernels.WRAPPERS}, state, masks)
@@ -1042,7 +1043,7 @@ def check_text_small() -> None:
 def run_main_path():
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.models.two_tower import dead_row
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
 
     cfg = Config().with_overrides({"training.batch_size": MAIN_B})
@@ -1060,7 +1061,7 @@ def run_main_path():
                            dead_row(state.params["item_embedding"]), seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     step_ms, losses = [], []
     for i in range(WARMUP_STEPS + MEASURE_STEPS):
         torch.cuda.synchronize()
@@ -1112,7 +1113,7 @@ def time_graph_step(main, launches_a_step: int = 1, item_tokens=None, mesh=None)
     epoch (the capture's pool included). ``item_tokens``: the text tower's
     ``[items, T]`` tokens on the card; ``mesh``: the epoch on the mesh
     (its step and collectives captured), ``state`` the rank's shard."""
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
     cfg, opt, state, log_q = main
@@ -1125,7 +1126,7 @@ def time_graph_step(main, launches_a_step: int = 1, item_tokens=None, mesh=None)
                          mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     state, m = prog(state, ds.columns, 0, lq, item_tokens)
     loss = float(m["loss"])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1198,7 +1199,7 @@ def run_dense_full(card: str) -> dict:
     (weight decay 0.01), replayed (``time_graph_step``)."""
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.models.two_tower import dead_row
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
 
     cfg_s = Config().with_overrides({"training.batch_size": MAIN_B})
@@ -1213,7 +1214,7 @@ def run_dense_full(card: str) -> dict:
         batch = host_batches(1, MAIN_B, NUM_USERS, NUM_ITEMS,
                              dead_row(state.params["user_embedding"]), rows_i - 1, seed=0)[0]
         step = make_train_step(cfg, opt, log_q)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = step(state, batch, torch.Generator(device="cuda").manual_seed(5))
         loss = float(m["loss"])
         launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
@@ -1264,7 +1265,7 @@ def run_text_full(card: str) -> dict:
     (``time_graph_step``)."""
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.models.two_tower import dead_row
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
 
     cfg = Config().with_overrides({"training.batch_size": MAIN_B, **TEXT_FULL})
@@ -1281,7 +1282,7 @@ def run_text_full(card: str) -> dict:
     step = make_train_step(cfg, opt, log_q, item_tokens=tokens)
     batches = host_batches(2, MAIN_B, NUM_USERS, NUM_ITEMS,
                            dead_row(state.params["user_embedding"]), rows_i - 1, seed=3)
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     for b in batches:
         state, m = step(state, b, gen)
     loss = float(m["loss"])
@@ -1304,7 +1305,7 @@ def run_seq_steps(card: str) -> dict:
     once a step."""
     from twotower_tpu_torch.config import load_config
     from twotower_tpu_torch.data.sequences import StreamDataset
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
 
     cfg = load_config(SEQ_CONFIG)
@@ -1328,7 +1329,7 @@ def run_seq_steps(card: str) -> dict:
         "item_embedding"].shape[0])
     step = make_train_step(cfg, opt, np.log((counts + 1) / (counts.sum() + len(counts))))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     losses, step_ms = [], []
     for i in range(SEQ_STEPS):
         batch = {k: v[i * SEQ_B:(i + 1) * SEQ_B] for k, v in data.columns.items()}
@@ -1544,17 +1545,16 @@ def check_f32_topk(q, corpus, k: int, vals, ids, what) -> dict:
 def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
     """topk_mips_twopass on the card (the float32 prefilter's kernels, one
     launch each) against the float64 product's top-k (check_f32_topk)."""
-    from twotower_tpu_torch.ops import prefilter_f32
+    from twotower_tpu_torch.ops import prefilter
     from twotower_tpu_torch.ops.topk import topk_mips_twopass
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, d, generator=gen, device="cuda")
     c = torch.randn(n, d, generator=gen, device="cuda")
-    before = (prefilter_f32.block_maxima_f32.launches,
-              prefilter_f32.block_candidates_f32.launches)
+    before = (prefilter.block_maxima_f32.launches, prefilter.block_candidates_f32.launches)
     vals, ids = topk_mips_twopass(q, c, k)
-    launches = (prefilter_f32.block_maxima_f32.launches - before[0],
-                prefilter_f32.block_candidates_f32.launches - before[1])
+    launches = (prefilter.block_maxima_f32.launches - before[0],
+                prefilter.block_candidates_f32.launches - before[1])
     if launches != (1, 1):
         raise RuntimeError(f"two-pass: float32 prefilter launches {launches}, not (1, 1)")
     got = check_f32_topk(q, c, k, vals, ids, f"two-pass at B={b} N={n}")
@@ -1564,19 +1564,27 @@ def check_twopass(b: int = 4096, n: int = 100_000, d: int = 128, k: int = 100):
         f"{got['tie_gap_max']:.3g} apart")
 
 
-# Phase 6b's shapes: query rows, corpus rows, depth, k, real corpus rows
-# (None: all). c3_validate's batch; serving's one request and full batch
-# over 10M items; a ragged query tile and corpus tail at D 64; D 256 and
-# k 1; D 16, k 100 and 257 query rows (two query tiles, the second of one row).
-PREFILTER_SHAPES = [
-    (4096, 1_145_145, 128, 100, None),
-    (1, 10_000_000, 128, 100, None),
-    (256, 10_000_000, 128, 100, 9_999_937),
-    (300, 200_003, 64, 10, None),
-    (5, 100_000, 256, 1, None),
-    (257, 50_000, 16, 100, 49_000),
-]
-PREFILTER_TIMED = 3  # the first shapes are timed
+# Phase 6b's shapes, by printed key: query rows, corpus rows, depth, k, real
+# corpus rows (None: all), timed. The approx search's bfloat16 prefilter
+# ("prefilter"): c3_validate's batch; serving's one request and full batch
+# over 10M items; a ragged query tile and corpus tail at D 64; D 256 and k 1;
+# D 16, k 100 and 257 query rows (two query tiles, the second of one row).
+# The exact search's float32 prefilter ("prefilter_f32"): c3_eval_exact's
+# batch, and one request over the same corpus.
+PREFILTER_SHAPES = {
+    "prefilter": [
+        (4096, 1_145_145, 128, 100, None, True),
+        (1, 10_000_000, 128, 100, None, True),
+        (256, 10_000_000, 128, 100, 9_999_937, True),
+        (300, 200_003, 64, 10, None, False),
+        (5, 100_000, 256, 1, None, False),
+        (257, 50_000, 16, 100, 49_000, False),
+    ],
+    "prefilter_f32": [
+        (4096, 1_145_145, 128, 100, None, True),
+        (1, 1_145_145, 128, 100, None, True),
+    ],
+}
 PREFILTER_RTOL = 1e-5
 
 
@@ -1607,191 +1615,144 @@ def _bf16_dots(qb, corpus, ids):
     return torch.einsum("bd,bkd->bk", qb.double(), corpus[ids].double())
 
 
-def check_prefilter(shapes=PREFILTER_SHAPES) -> list[dict]:
-    """Phase 6b (see the module docstring): returns a row a shape."""
+def _prefilter_bf16_checks(q, real, k, vals, ids, maxima, chosen, cand, chunk, what) -> dict:
+    """The bfloat16 search's top-k against the search it replaced
+    (library_topk) and both kernels against their plain versions, within
+    PREFILTER_RTOL (and whether bit for bit)."""
     from twotower_tpu_torch.ops import prefilter
-    from twotower_tpu_torch.ops.topk import topk_mips_approx
+
+    n_real = real.shape[0]
+    qb = q.to(torch.bfloat16)
+    ref_vals, ref_ids = library_topk(q, real, k, n_real)
+    atol = PREFILTER_RTOL * float(ref_vals.abs().max())
+    torch.testing.assert_close(vals, ref_vals, rtol=PREFILTER_RTOL, atol=atol)
+    srt = ids.sort(dim=1).values
+    if ids.min() < 0 or ids.max() >= n_real or bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise RuntimeError(f"{what}: ids are not k distinct real corpus rows")
+    differ = ids != ref_ids
+    tie_gap = float((_bf16_dots(qb, real, ids) - _bf16_dots(qb, real, ref_ids))
+                    .abs()[differ].max()) if differ.any() else 0.0
+    if tie_gap > atol:
+        raise RuntimeError(f"{what}: ids differ at scores {tie_gap} apart")
+    plain = prefilter.block_maxima_plain(qb, real, n_real, chunk)
+    torch.testing.assert_close(maxima, plain, rtol=PREFILTER_RTOL, atol=atol)
+    maxima_same_bits = bool(torch.equal(maxima, plain))
+    del plain
+    plain = prefilter.block_candidates_plain(qb, real, n_real, chosen, chunk)
+    torch.testing.assert_close(cand, plain, rtol=PREFILTER_RTOL, atol=atol)
+    return {"score_max_abs_diff": float((vals - ref_vals).abs().max()),
+            "ids_differ": int(differ.sum()), "tie_gap": tie_gap,
+            "maxima_equal_plain_bits": maxima_same_bits,
+            "candidates_equal_plain_bits": bool(torch.equal(cand, plain))}
+
+
+def _prefilter_f32_checks(q, real, k, vals, ids, maxima, chosen, cand, chunk, what) -> dict:
+    """The float32 search's top-k against the float64 product's
+    (check_f32_topk); a row's maxima and candidates alike alone and in the
+    batch; both kernels against their plain versions within twice
+    TWOPASS_REL of a bound on |q|.|c|."""
+    from twotower_tpu_torch.ops import prefilter
+
+    n = real.shape[0]
+    row = check_f32_topk(q, real, k, vals, ids, what)
+    r = q.shape[0] // 2
+    one = q[r:r + 1].contiguous()
+    if not (torch.equal(prefilter.block_maxima_f32(one, real, n), maxima[r:r + 1])
+            and torch.equal(prefilter.block_candidates_f32(
+                one, real, n, chosen[r:r + 1].contiguous()), cand[r:r + 1])):
+        raise RuntimeError(f"{what}: row {r}'s scores differ alone and in the batch")
+    mag = q.abs().sum(dim=1, keepdim=True) * real.abs().max()  # >= |q| . |c|
+    plain = prefilter.block_maxima_plain(q, real, n, chunk)
+    if not bool(((maxima - plain).abs() <= 2 * TWOPASS_REL * mag).all()):
+        raise RuntimeError(f"{what}: the maxima kernel is off its plain version")
+    row["maxima_plain_max_abs"] = float((maxima - plain).abs().max())
+    del plain
+    plain = prefilter.block_candidates_plain(q, real, n, chosen, chunk)
+    if not (torch.equal(torch.isinf(cand), torch.isinf(plain)) and bool(
+            ((cand - plain).nan_to_num(0.0, 0.0, 0.0).abs() <= 2 * TWOPASS_REL * mag).all())):
+        raise RuntimeError(f"{what}: the candidates kernel is off its plain version")
+    return row
+
+
+def check_prefilter(shapes=PREFILTER_SHAPES) -> dict[str, list[dict]]:
+    """Phase 6b (see the module docstring), both precisions: a row a shape,
+    under each precision's printed key."""
+    from twotower_tpu_torch.ops import prefilter
+    from twotower_tpu_torch.ops.topk import _twopass_core, topk_mips_approx, topk_mips_twopass
 
     block = prefilter.BLOCK
-    out = []
-    for i, (b, n, d, k, valid) in enumerate(shapes):
-        n_real = n if valid is None else valid
-        gen = torch.Generator(device="cuda").manual_seed(b + n + d + k)
-        q = torch.randn(b, d, generator=gen, device="cuda")
-        corpus = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
-        qb, real = q.to(torch.bfloat16), corpus[:n_real]
-        before = (prefilter.block_maxima.launches, prefilter.block_candidates.launches)
-        vals, ids = topk_mips_approx(q, corpus, k, num_valid=valid)
-        torch.cuda.synchronize()
-        launches = (prefilter.block_maxima.launches - before[0],
-                    prefilter.block_candidates.launches - before[1])
-        if launches != (1, 1):
-            raise RuntimeError(f"{(b, n, d, k)}: kernel launches a call {launches}, not (1, 1)")
-        ref_vals, ref_ids = library_topk(q, corpus, k, n_real)
-        atol = PREFILTER_RTOL * float(ref_vals.abs().max())
-        torch.testing.assert_close(vals, ref_vals, rtol=PREFILTER_RTOL, atol=atol)
-        srt = ids.sort(dim=1).values
-        if ids.min() < 0 or ids.max() >= n_real or bool((srt[:, 1:] == srt[:, :-1]).any()):
-            raise RuntimeError(f"{(b, n, d, k)}: ids are not k distinct real corpus rows")
-        differ = ids != ref_ids
-        tie_gap = float((_bf16_dots(qb, corpus, ids) - _bf16_dots(qb, corpus, ref_ids))
-                        .abs()[differ].max()) if differ.any() else 0.0
-        if tie_gap > atol:
-            raise RuntimeError(f"{(b, n, d, k)}: ids differ at scores {tie_gap} apart")
-        # The kernels on their own against their plain versions on the same
-        # inputs, every row; the kept scores bit for bit the scores the
-        # maxima were taken over.
-        chunk = max(block, (1 << 28) // b // block * block)  # 1 GiB of plain scores
-        maxima = prefilter.block_maxima(qb, real, n_real)
-        plain_maxima = prefilter.block_maxima_plain(qb, real, n_real, chunk)
-        torch.testing.assert_close(maxima, plain_maxima, rtol=PREFILTER_RTOL, atol=atol)
-        maxima_same_bits = bool(torch.equal(maxima, plain_maxima))
-        del plain_maxima
-        chosen = prefilter.top_blocks(maxima, k)
-        cand = prefilter.block_candidates(qb, real, n_real, chosen)
-        plain_cand = prefilter.block_candidates_plain(qb, real, n_real, chosen, chunk)
-        torch.testing.assert_close(cand, plain_cand, rtol=PREFILTER_RTOL, atol=atol)
-        cand_same_bits = bool(torch.equal(cand, plain_cand))
-        del plain_cand
-        if not torch.equal(cand.view(b, k, block).amax(dim=2), maxima.gather(1, chosen)):
-            raise RuntimeError(f"{(b, n, d, k)}: a kept block's largest score is not its maximum")
-        torch.cuda.synchronize()
-        row = {"b": b, "n": n, "num_valid": n_real, "d": d, "k": k,
-               "score_max_abs_diff": float((vals - ref_vals).abs().max()),
-               "ids_differ": int(differ.sum()), "tie_gap": tie_gap,
-               "maxima_equal_plain_bits": maxima_same_bits,
-               "candidates_equal_plain_bits": cand_same_bits}
-        if i < PREFILTER_TIMED:
-            flops = 2 * b * n_real * d
-            nbytes = n_real * d * 2 + b * d * 4 + b * k * 12
-            bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    out = {}
+    for key, rows in shapes.items():
+        bf16 = key == "prefilter"
+        p, search, checks, peak, seed, bad_depth = (
+            (prefilter.BF16, topk_mips_approx, _prefilter_bf16_checks, PEAK_BF16_FLOPS, 0, 24)
+            if bf16 else (prefilter.F32, topk_mips_twopass, _prefilter_f32_checks,
+                          PEAK_F32_ACCURATE_FLOPS, 1, 12))
+        out[key] = []
+        for b, n, d, k, valid, timed in rows:
+            n_real = n if valid is None else valid
+            what = f"{p.dtype} prefilter {(b, n, d, k)}"
+            gen = torch.Generator(device="cuda").manual_seed(b + n + d + k + seed)
+            q = torch.randn(b, d, generator=gen, device="cuda")
+            corpus = torch.randn(n, d, generator=gen, device="cuda").to(p.dtype)
+            qk, real = q.to(p.dtype), corpus[:n_real]
+            before = (p.maxima.launches, p.candidates.launches)
+            vals, ids = search(q, corpus, k, num_valid=valid)
+            torch.cuda.synchronize()
+            launches = (p.maxima.launches - before[0], p.candidates.launches - before[1])
+            if launches != (1, 1):
+                raise RuntimeError(f"{what}: kernel launches a call {launches}, not (1, 1)")
+            # The kernels on their own, against their plain versions on the
+            # same inputs, every row; the kept scores bit for bit the scores
+            # the maxima were taken over.
+            chunk = max(block, (1 << (28 if bf16 else 26)) // b // block * block)
+            maxima = p.maxima(qk, real, n_real)
+            chosen = prefilter.top_blocks(maxima, k)
+            cand = p.candidates(qk, real, n_real, chosen)
+            if not torch.equal(cand.view(b, k, block).amax(dim=2), maxima.gather(1, chosen)):
+                raise RuntimeError(f"{what}: a kept block's largest score is not its maximum")
+            row = {"b": b, "n": n, **({"num_valid": n_real} if bf16 else {}), "d": d, "k": k,
+                   **checks(q, real, k, vals, ids, maxima, chosen, cand, chunk, what)}
+            torch.cuda.synchronize()
+            if timed:
+                flops = 2 * b * n_real * d
+                nbytes = n_real * d * corpus.element_size() + b * d * 4 + b * k * 12
+                bound_ms = max(flops / peak, nbytes / PEAK_BYTES) * 1e3
 
-            def plain():
-                prefilter.block_maxima_plain(qb, real, n_real, chunk)
-                prefilter.block_candidates_plain(qb, real, n_real, chosen, chunk)
+                def plain():
+                    prefilter.block_maxima_plain(qk, real, n_real, chunk)
+                    prefilter.block_candidates_plain(qk, real, n_real, chosen, chunk)
 
-            row.update({
-                "maxima_ms": time_ms(lambda: prefilter.block_maxima(qb, real, n_real)),
-                "maxima_ms_batched": time_ms_batched(
-                    lambda: prefilter.block_maxima(qb, real, n_real)),
-                "candidates_ms": time_ms(lambda: prefilter.block_candidates(
-                    qb, real, n_real, chosen)),
-                "candidates_ms_batched": time_ms_batched(lambda: prefilter.block_candidates(
-                    qb, real, n_real, chosen)),
-                "select_ms": time_ms(lambda: prefilter.top_blocks(maxima, k)),
-                "search_ms": time_ms(lambda: topk_mips_approx(q, corpus, k, num_valid=valid)),
-                "plain_ms": time_ms(plain, reps=2, warm=1),
-                "library_ms": time_ms(lambda: library_topk(q, corpus, k, n_real), reps=5,
-                                      warm=1),
-                "bound_ms": bound_ms,
-                "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-                else "bytes",
-            })
-            row["share_of_bound"] = bound_ms / row["search_ms"]
-            row["maxima_share_of_bound_batched"] = bound_ms / row["maxima_ms_batched"]
-        del corpus, real, maxima, cand
-        torch.cuda.empty_cache()
-        log(f"  prefilter {json.dumps(row)}")
-        out.append(row)
-    lib = prefilter._lib()
-    refused = lib.tt_prefilter_maxima(None, None, 1, 1, 24, None, None)
-    if refused == 0:
-        raise RuntimeError("the maxima kernel took a depth of 24 (not a multiple of 16)")
-    log(f"  a depth of 24 refused at launch: CUDA error {refused}")
-    return out
+                def library():
+                    if bf16:  # the search the prefilter replaced, and the float32 scan
+                        return library_topk(q, corpus, k, n_real)
+                    return _twopass_core(q, corpus, k, 131072, block, n_real)
 
-
-# Phase 6b's float32 shapes (the exact search's prefilter): c3_eval_exact's
-# batch, and one request over the same corpus.
-PREFILTER_F32_SHAPES = [
-    (4096, 1_145_145, 128, 100),
-    (1, 1_145_145, 128, 100),
-]
-
-
-def check_prefilter_f32(shapes=PREFILTER_F32_SHAPES) -> list[dict]:
-    """Phase 6b's float32 shapes (see the module docstring): returns a row a
-    shape."""
-    from twotower_tpu_torch.ops import prefilter, prefilter_f32
-    from twotower_tpu_torch.ops.topk import _twopass_core, topk_mips_twopass
-
-    block = prefilter_f32.BLOCK
-    out = []
-    for b, n, d, k in shapes:
-        gen = torch.Generator(device="cuda").manual_seed(b + n + d + k + 1)
-        q = torch.randn(b, d, generator=gen, device="cuda")
-        corpus = torch.randn(n, d, generator=gen, device="cuda")
-        before = (prefilter_f32.block_maxima_f32.launches,
-                  prefilter_f32.block_candidates_f32.launches)
-        vals, ids = topk_mips_twopass(q, corpus, k)
-        torch.cuda.synchronize()
-        launches = (prefilter_f32.block_maxima_f32.launches - before[0],
-                    prefilter_f32.block_candidates_f32.launches - before[1])
-        if launches != (1, 1):
-            raise RuntimeError(f"{(b, n, d, k)}: kernel launches a call {launches}, not (1, 1)")
-        row = {"b": b, "n": n, "d": d, "k": k,
-               **check_f32_topk(q, corpus, k, vals, ids, f"float32 prefilter {(b, n, d, k)}")}
-        # The kernels on their own: each kept block's largest score bit for
-        # bit its maximum; a row's maxima and candidates alike alone and in
-        # the batch; both against their plain versions on the same inputs.
-        maxima = prefilter_f32.block_maxima_f32(q, corpus, n)
-        chosen = prefilter.top_blocks(maxima, k)
-        cand = prefilter_f32.block_candidates_f32(q, corpus, n, chosen)
-        if not torch.equal(cand.view(b, k, block).amax(dim=2), maxima.gather(1, chosen)):
-            raise RuntimeError(f"{(b, n, d, k)}: a kept block's largest score is not its maximum")
-        r = b // 2
-        one = q[r:r + 1].contiguous()
-        if not (torch.equal(prefilter_f32.block_maxima_f32(one, corpus, n), maxima[r:r + 1])
-                and torch.equal(prefilter_f32.block_candidates_f32(
-                    one, corpus, n, chosen[r:r + 1].contiguous()), cand[r:r + 1])):
-            raise RuntimeError(f"{(b, n, d, k)}: row {r}'s scores differ alone and in the batch")
-        chunk = max(block, (1 << 26) // b // block * block)
-        mag = q.abs().sum(dim=1, keepdim=True) * corpus.abs().max()  # >= |q| . |c|
-        plain = prefilter_f32.block_maxima_plain(q, corpus, n, chunk)
-        if not bool(((maxima - plain).abs() <= 2 * TWOPASS_REL * mag).all()):
-            raise RuntimeError(f"{(b, n, d, k)}: the maxima kernel is off its plain version")
-        row["maxima_plain_max_abs"] = float((maxima - plain).abs().max())
-        del plain
-        plain = prefilter_f32.block_candidates_plain(q, corpus, n, chosen, chunk)
-        if not (torch.equal(torch.isinf(cand), torch.isinf(plain)) and bool(
-                ((cand - plain).nan_to_num(0.0, 0.0, 0.0).abs() <= 2 * TWOPASS_REL * mag).all())):
-            raise RuntimeError(f"{(b, n, d, k)}: the candidates kernel is off its plain version")
-        del plain
-        flops = 2 * b * n * d
-        nbytes = n * d * 4 + b * d * 4 + b * k * 12
-        bound_ms = max(flops / PEAK_F32_ACCURATE_FLOPS, nbytes / PEAK_BYTES) * 1e3
-
-        def plain_both():
-            prefilter_f32.block_maxima_plain(q, corpus, n, chunk)
-            prefilter_f32.block_candidates_plain(q, corpus, n, chosen, chunk)
-
-        row.update({
-            "maxima_ms": time_ms(lambda: prefilter_f32.block_maxima_f32(q, corpus, n)),
-            "maxima_ms_batched": time_ms_batched(
-                lambda: prefilter_f32.block_maxima_f32(q, corpus, n)),
-            "candidates_ms": time_ms(lambda: prefilter_f32.block_candidates_f32(
-                q, corpus, n, chosen)),
-            "candidates_ms_batched": time_ms_batched(lambda: prefilter_f32.block_candidates_f32(
-                q, corpus, n, chosen)),
-            "select_ms": time_ms(lambda: prefilter.top_blocks(maxima, k)),
-            "search_ms": time_ms(lambda: topk_mips_twopass(q, corpus, k)),
-            "plain_ms": time_ms(plain_both, reps=2, warm=1),
-            "library_ms": time_ms(lambda: _twopass_core(q, corpus, k, 131072, block, n), reps=5,
-                                  warm=1),
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if flops / PEAK_F32_ACCURATE_FLOPS >= nbytes / PEAK_BYTES
-            else "bytes",
-        })
-        row["share_of_bound"] = bound_ms / row["search_ms"]
-        row["maxima_share_of_bound_batched"] = bound_ms / row["maxima_ms_batched"]
-        del corpus, maxima, cand
-        torch.cuda.empty_cache()
-        log(f"  prefilter_f32 {json.dumps(row)}")
-        out.append(row)
-    refused = prefilter_f32._lib().tt_prefilter_f32_maxima(None, None, 1, 1, 12, None, None)
-    if refused == 0:
-        raise RuntimeError("the float32 maxima kernel took a depth of 12 (not a multiple of 8)")
-    log(f"  a depth of 12 refused at launch: CUDA error {refused}")
+                row.update({
+                    "maxima_ms": time_ms(lambda: p.maxima(qk, real, n_real)),
+                    "maxima_ms_batched": time_ms_batched(lambda: p.maxima(qk, real, n_real)),
+                    "candidates_ms": time_ms(lambda: p.candidates(qk, real, n_real, chosen)),
+                    "candidates_ms_batched": time_ms_batched(
+                        lambda: p.candidates(qk, real, n_real, chosen)),
+                    "select_ms": time_ms(lambda: prefilter.top_blocks(maxima, k)),
+                    "search_ms": time_ms(lambda: search(q, corpus, k, num_valid=valid)),
+                    "plain_ms": time_ms(plain, reps=2, warm=1),
+                    "library_ms": time_ms(library, reps=5, warm=1),
+                    "bound_ms": bound_ms,
+                    "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes",
+                })
+                row["share_of_bound"] = bound_ms / row["search_ms"]
+                row["maxima_share_of_bound_batched"] = bound_ms / row["maxima_ms_batched"]
+            del corpus, real, maxima, cand
+            torch.cuda.empty_cache()
+            log(f"  {key} {json.dumps(row)}")
+            out[key].append(row)
+        refused = getattr(prefilter._lib(p.source), p.maxima_entry)(
+            None, None, 1, 1, bad_depth, None, None)
+        if refused == 0:
+            raise RuntimeError(f"the {p.dtype} maxima kernel took a depth of {bad_depth} (not a "
+                               f"multiple of {p.depth_multiple})")
+        log(f"  a depth of {bad_depth} refused at launch: CUDA error {refused}")
     return out
 
 
@@ -1806,7 +1767,7 @@ def eval_batch_times(ckpt: Path, card: str):
     from twotower_tpu_torch.evaluation.evaluate import restore_params
     from twotower_tpu_torch.evaluation.metrics import metrics_at_k
     from twotower_tpu_torch.models import two_tower
-    from twotower_tpu_torch.ops import prefilter_f32
+    from twotower_tpu_torch.ops import prefilter
     from twotower_tpu_torch.ops.topk import _twopass_core, topk_mips_twopass
 
     cfg = load_config_for_checkpoint(ckpt)
@@ -1828,11 +1789,11 @@ def eval_batch_times(ckpt: Path, card: str):
         ms = time_ms(batch, reps=10)
         profile_device(lambda i: batch(), 3, "batch")
         u = two_tower.embed_users(params, users, cfg.model)
-        chunk = ev.corpus_chunk_size // prefilter_f32.BLOCK * prefilter_f32.BLOCK
-        scan_ms = time_ms(lambda: _twopass_core(u, corpus, ev.max_k, chunk, prefilter_f32.BLOCK,
+        chunk = ev.corpus_chunk_size // prefilter.BLOCK * prefilter.BLOCK
+        scan_ms = time_ms(lambda: _twopass_core(u, corpus, ev.max_k, chunk, prefilter.BLOCK,
                                                 ni), reps=10)
     d = corpus.shape[1]
-    kernels_route = prefilter_f32.applies(corpus, ev.max_k, ni)
+    kernels_route = prefilter.F32.applies(corpus, ev.max_k, ni)
     peak, route = ((PEAK_F32_ACCURATE_FLOPS, "3xTF32") if kernels_route
                    else (PEAK_F32_FLOPS, "f32 FMA"))
     ops_ms = 2 * EVAL_B * ni * d / peak * 1e3
@@ -1870,13 +1831,13 @@ def train_and_evaluate(ckpt: Path, train_data: list, eval_data: list, what: str,
     equal to train_summary.json within 1e-6. Returns the summary, the
     launches, the users of evaluate-model's first call and the best step."""
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.train import main as train_main
 
     fresh_dir(ckpt)
     args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
     t0 = time.perf_counter()
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     summary = run_cli(train_main, args + train_data + SLICE_TRAIN + list(overrides))
     launches = {w.__name__: w.launches for w in kernels.WRAPPERS}
     t_train = time.perf_counter() - t0
@@ -1958,7 +1919,7 @@ def check_device_loop_small():
     must equal its steps."""
     from twotower_tpu_torch import bridge
     from twotower_tpu_torch.config import Config
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
@@ -1982,7 +1943,7 @@ def check_device_loop_small():
         ds = DeviceDataset(users, items, 256, device=dev)
         prog = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, num_items=500,
                              device=dev, capture=capture)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = prog(state, ds.columns, 0, torch.as_tensor(log_q, device=dev), perm=perm)
         runs[name] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
                       {w.__name__: w.launches for w in kernels.WRAPPERS})
@@ -2252,7 +2213,7 @@ def run_orchestrate_slice(card: str) -> dict:
 
     from twotower_tpu_torch.data import generate_interactions
     from twotower_tpu_torch.data.orchestrate import main as orchestrate_main
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.train import main as train_main
 
     base = fresh_dir(ROOT / "build" / "chip_smoke_orchestrate")
@@ -2273,7 +2234,7 @@ def run_orchestrate_slice(card: str) -> dict:
             {"download": "skipped", "prepare": "skipped", "eda": "ok"}]
     if status != want or not all(r["ok"] for r in runs):
         raise RuntimeError(f"orchestrate-pipeline stages {status}, want {want}")
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     summary = run_cli(train_main, ["--device", "cuda", "--prepared-dir", str(prepared),
                                    "--exec", "device-loop", "--checkpoint-dir", str(ckpt),
                                    "--no-eval", "--writers", "jsonl", "--override",
@@ -2457,14 +2418,14 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
     of each of its kernels at a time, the float32 prefilter none), every
     epoch validated by the approx search over the bfloat16 corpus, and its log, saves, searches and segments recorded in
     ``into``. Returns its summary."""
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels, prefilter
     from twotower_tpu_torch.training.train import main as train_main
 
     fresh_dir(ckpt)
     for key in ("messages", "saves", "searches", "segments"):
         into[key] = []
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     t = time.perf_counter()
     with logged("twotower_tpu_torch", into["messages"]), saves_watched(into["saves"]), \
             searches_watched(into["searches"]), segments_watched(into["segments"]):
@@ -2475,7 +2436,7 @@ def lifecycle_train(ckpt: Path, prepared: Path, rung: str, epochs: int, into: di
             f"training.epochs={epochs}"])
     into["seconds"] = time.perf_counter() - t
     into["launches"] = {w.__name__: w.launches for w in kernels.WRAPPERS}
-    into["search_launches"] = {w.__name__: w.launches for w in kernels.SEARCH_WRAPPERS}
+    into["search_launches"] = {w.__name__: w.launches for w in prefilter.WRAPPERS}
     into["records"] = epoch_records(ckpt)
     into["steps"] = steps = int(into["records"][-1]["step"])
     if (summary["num_users"], summary["num_items"]) != (LIFECYCLE_USERS, LIFECYCLE_ITEMS):
@@ -2512,7 +2473,7 @@ def run_lifecycle(card: str) -> dict:
     from twotower_tpu_torch.evaluation import Evaluator
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
     from twotower_tpu_torch.models import two_tower
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, prefilter
     from twotower_tpu_torch.ops.topk import topk_mips_twopass
     from twotower_tpu_torch.serving.api import build_service
     from twotower_tpu_torch.utils.checkpoint import CheckpointManager
@@ -2572,11 +2533,11 @@ def run_lifecycle(card: str) -> dict:
                str(prepared), "--rows", str(LIFECYCLE_HELD)]
     t = time.perf_counter()
     seen, searched = [], []
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     with evaluated_users(seen), searches_watched(searched):
         test = run_cli(eval_main, ev_args + ["--subset", "test", "--override", *EXACT_EVAL])
     t_eval = time.perf_counter() - t
-    eval_launches = {w.__name__: w.launches for w in kernels.SEARCH_WRAPPERS}
+    eval_launches = {w.__name__: w.launches for w in prefilter.WRAPPERS}
     if test["checkpoint_step"] != best:
         raise RuntimeError(f"evaluate-model restored step {test['checkpoint_step']}, "
                            f"best_step() {best}")
@@ -3285,7 +3246,7 @@ def search_bound_ms(index, batch: int) -> tuple[float, str]:
     written once) at 3.35 TB/s, and its products (2 B N D) at the corpus
     dtype's dense peak, or at three TF32 passes' where the exact search
     takes the float32 prefilter."""
-    from twotower_tpu_torch.ops import prefilter_f32
+    from twotower_tpu_torch.ops import prefilter
 
     n, d = index.num_items, index.corpus.shape[1]
     nbytes = n * d * index.corpus.element_size() + batch * d * 4 + batch * SERVE_K * 12
@@ -3293,7 +3254,7 @@ def search_bound_ms(index, batch: int) -> tuple[float, str]:
         nbytes += n * 4
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     peak = PEAK_BY_DTYPE[index.corpus.dtype]
-    if index.exact and prefilter_f32.applies(index.corpus, SERVE_K, n):
+    if index.exact and prefilter.F32.applies(index.corpus, SERVE_K, n):
         peak = PEAK_F32_ACCURATE_FLOPS
     ops_ms = 2 * batch * n * d / peak * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
@@ -3772,7 +3733,7 @@ def mesh_nccl_one_rank(card: str, work: Path) -> dict:
     and evaluate-model --mesh against evaluate-model."""
     from twotower_tpu_torch.config import Config
     from twotower_tpu_torch.data import BatchPipeline
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.parallel import build_mesh
     from twotower_tpu_torch.training import (Trainer, init_train_state, make_optimizer,
                                              make_train_step)
@@ -3798,7 +3759,7 @@ def mesh_nccl_one_rank(card: str, work: Path) -> dict:
     for i in range(3):
         with cancelled_rows(masks):
             one, m1 = step_one(one, batches[i], None)
-        kernels.reset_launch_counts()  # the mesh step's launches alone
+        build.reset_launch_counts()  # the mesh step's launches alone
         state, mm = step_mesh(state, batches[i], None)
         for w in kernels.WRAPPERS:
             first[w.__name__] += w.launches
@@ -3825,7 +3786,7 @@ def mesh_nccl_one_rank(card: str, work: Path) -> dict:
                            np.concatenate([b["item_idx"] for b in batches]))
     fit_cfg = cfg.with_overrides({"training.epochs": 1})
     trainer = Trainer(fit_cfg, log_q=log_q, mesh=mesh)
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     t = time.perf_counter()
     res = trainer.fit(state, BatchPipeline(cols, MAIN_B, seed=1))
     torch.cuda.synchronize()
@@ -3874,7 +3835,7 @@ def mesh_cli(card: str, work: Path) -> dict:
     within 1e-6); launches = train-model's steps."""
     from twotower_tpu_torch.data import generate_interactions
     from twotower_tpu_torch.evaluation.evaluate import main as eval_main
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.train import main as train_main
 
     t = time.perf_counter()
@@ -3891,7 +3852,7 @@ def mesh_cli(card: str, work: Path) -> dict:
     for label, extra in (("host", ["--exec", "host"]), ("device_loop", ["--device-loop"])):
         ckpt = fresh_dir(work / f"cli_{label}")
         args = ["--device", "cuda", "--checkpoint-dir", str(ckpt)]
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         t = time.perf_counter()
         summary = run_cli(train_main, args + ["--mesh"] + extra + data + MESH_CLI_TRAIN)
         train_s = time.perf_counter() - t
@@ -4087,7 +4048,7 @@ def _gloo_rank(rank: int, num_model: int, store: str, out: str) -> None:
 
     sys.path.insert(0, str(ROOT))
     from twotower_tpu_torch.config import Config
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.parallel import build_mesh, gather_state
     from twotower_tpu_torch.parallel.sharding import data_rows
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
@@ -4135,7 +4096,7 @@ def _gloo_rank(rank: int, num_model: int, store: str, out: str) -> None:
     times, dropped, launches = [], 0.0, {w.__name__: 0 for w in kernels.WRAPPERS}
     for i, b in enumerate(batches):
         local = {k: data_rows(mesh, torch.as_tensor(v)) for k, v in b.items()}
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         state, m = step(state, local, None)
@@ -4386,7 +4347,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is not beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from twotower_tpu_torch.ops import build, kernels
+    from twotower_tpu_torch.ops import build, kernels, prefilter
 
     log("phase 1: card")
     card = card_line()
@@ -4403,11 +4364,10 @@ def main() -> int:
     report = build_report(paths)
 
     if sys.argv[1:] == ["--prefilter-only"]:  # a partial run: phases 1, 2 and 6b, no result line
-        log("phase 6b: the approx search's prefilter")
-        log(json.dumps({"prefilter": check_prefilter()}))
-        log("phase 6b: the exact search's float32 prefilter")
+        log("phase 6b: the block-maxima prefilter, over a bfloat16 and a float32 corpus")
         check_twopass()
-        log(json.dumps({"prefilter_f32": check_prefilter_f32()}))
+        for key, rows in check_prefilter().items():
+            log(json.dumps({key: rows}))
         log("phases 1, 2 and 6b passed (a partial run: no result line)")
         return 0
 
@@ -4464,12 +4424,10 @@ def main() -> int:
         check_cli_card_vs_cpu(*variant)
     check_twopass()
 
-    log("phase 6b: the approx search's prefilter")
+    log("phase 6b: the block-maxima prefilter, over a bfloat16 and a float32 corpus")
     prefilter_rows = check_prefilter()
-    log(json.dumps({"prefilter": prefilter_rows}))
-    log("phase 6b: the exact search's float32 prefilter")
-    prefilter_f32_rows = check_prefilter_f32()
-    log(json.dumps({"prefilter_f32": prefilter_f32_rows}))
+    for key, rows in prefilter_rows.items():
+        log(json.dumps({key: rows}))
 
     log("phase 7: train-model and evaluate-model at full width")
     slice_launches, test_users, best_step, host_summary = run_slice(card)
@@ -4503,10 +4461,10 @@ def main() -> int:
     log(json.dumps({"oracle_config3": {k: v for k, v in oracle3.items() if k != "launches"}}))
 
     log("phase 8: serving (serve-model's index, service and batcher)")
-    kernels.reset_launch_counts()
+    build.reset_launch_counts()
     serving = run_serving(card, ROOT / "build" / "chip_smoke_slice", test_users, best_step)
     serve_launches = {w.__name__: w.launches
-                      for w in kernels.WRAPPERS + kernels.SEARCH_WRAPPERS}
+                      for w in kernels.WRAPPERS + prefilter.WRAPPERS}
     log(f"  launches of the hand-written kernels while serving: {serve_launches} (the loss's "
         "none; each prefilter's one of each a launch of the bfloat16 and the exact float32 "
         "corpus's searches)")
@@ -4557,8 +4515,8 @@ def main() -> int:
             mesh_one["launches_cli_device_loop"][row["name"]])
         row["launches_mesh_gloo_2x1_rank1"] = mesh_two["2x1"]["launches_rank1"][row["name"]]
         row["launches_mesh_gloo_1x2_rank1"] = mesh_two["1x2"]["launches_rank1"][row["name"]]
-    at_validate = prefilter_rows[0]  # c3_validate's batch
-    at_eval = prefilter_f32_rows[0]  # c3_eval_exact's batch
+    at_validate = prefilter_rows["prefilter"][0]  # c3_validate's batch
+    at_eval = prefilter_rows["prefilter_f32"][0]  # c3_eval_exact's batch
     # Phase 7g's launches: the bfloat16 pair's in train-model's validation,
     # the float32 pair's in the exact evaluate-model (train-model's are 0).
     bf16_lifecycle = {f"launches_lifecycle_{rung}": lifecycle[f"search_launches_{rung}"]

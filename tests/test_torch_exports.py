@@ -50,9 +50,14 @@ def test_param_count_matches_jax(text_buckets):
 
 
 def test_importing_ops_builds_no_kernel():
+    """The search imports the kernel machinery (``ops/build.py``) with the
+    package, but nothing is built or loaded until a kernel's first launch,
+    and the fused loss's wrappers are not imported at all."""
     code = ("import sys, twotower_tpu_torch.ops as ops; "
+            "from twotower_tpu_torch.ops import build, prefilter; "
             "print(ops.topk_mips.__module__, 'twotower_tpu_torch.ops.kernels' in sys.modules, "
-            "'twotower_tpu_torch.ops.build' in sys.modules)")
+            "len(build.build_logs), prefilter._lib.cache_info().currsize, "
+            "any('torch_kernels' in line for line in open('/proc/self/maps')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True).stdout.split()
-    assert out == ["twotower_tpu_torch.ops.topk", "False", "False"]
+    assert out == ["twotower_tpu_torch.ops.topk", "False", "0", "0", "False"]

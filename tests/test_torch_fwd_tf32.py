@@ -1,6 +1,6 @@
 """The numeric scheme of the forward kernel, on the CPU: S = U . V^T taken
 as ``lo.hi + hi.lo + hi.hi`` in TF32 (operands split as the kernel splits
-them, ``kernels.tf32_split_plain``), then the forward's masking and
+them, ``precision.tf32_split_plain``), then the forward's masking and
 logsumexp; and its merge pass, which turns the per-slice row statistics of
 the column slices into the row's outputs.
 

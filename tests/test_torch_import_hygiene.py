@@ -84,6 +84,51 @@ def test_hygiene_check_sees_the_whole_package():
             "twotower_tpu_torch/bridge.py"} <= names
 
 
+def test_ops_imports_point_one_way():
+    """The modules of ``twotower_tpu_torch/ops/`` import one another along an
+    acyclic graph (imports inside functions counted), and none imports a
+    sibling inside a function: a cycle hidden by a function-level import
+    means one decision lives in two modules."""
+    ops = ROOT / "twotower_tpu_torch" / "ops"
+    mods = {p.stem for p in ops.glob("*.py")} - {"__init__"}
+    graph, inner = {}, []
+    for m in sorted(mods):
+        tree = ast.parse((ops / f"{m}.py").read_text())
+        top = {id(n) for n in tree.body}
+        graph[m] = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module == "twotower_tpu_torch.ops":
+                names = {a.name for a in node.names} & mods
+            elif isinstance(node, ast.ImportFrom) and node.module and \
+                    node.module.startswith("twotower_tpu_torch.ops."):
+                names = {node.module.split(".")[2]} & mods
+            elif isinstance(node, ast.Import):
+                names = {a.name.split(".")[2] for a in node.names
+                         if a.name.startswith("twotower_tpu_torch.ops.")} & mods
+            else:
+                continue
+            graph[m] |= names
+            if names and id(node) not in top:
+                inner.append((m, sorted(names)))
+    assert not inner, f"sibling imports inside functions: {inner}"
+    done, path = set(), []
+
+    def visit(m):
+        assert m not in path, f"import cycle: {path[path.index(m):] + [m]}"
+        if m in done:
+            return
+        path.append(m)
+        for dep in sorted(graph[m]):
+            visit(dep)
+        path.pop()
+        done.add(m)
+
+    for m in sorted(graph):
+        visit(m)
+    assert graph["kernels"] & {"prefilter", "topk"} == set()
+    assert graph["precision"] == graph["build"] == set()
+
+
 def test_parallel_picks_its_backend_from_the_device_never_from_an_exception():
     """``parallel/*`` chooses ``nccl`` or ``gloo`` by the device (and stages a
     gloo collective on CUDA tensors by name): no module of it catches an
@@ -298,7 +343,7 @@ def test_device_loop_graph_matches_eager(cuda_device):
     (schedule on, dropout 0): metrics rtol 1e-4, state rtol 1e-4 / atol
     1e-5; each kernel's launches equal the steps under replay."""
     from twotower_tpu_torch import bridge
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,7 +364,7 @@ def test_device_loop_graph_matches_eager(cuda_device):
         ds = DeviceDataset(users, items, 256, device=cuda_device)
         fn = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, device=cuda_device,
                            capture=capture)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = fn(state, ds.columns, 0, perm=perm)
         out[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
                         [w.launches for w in kernels.WRAPPERS])
@@ -339,7 +384,7 @@ def test_dense_and_text_graph_matches_eager(cuda_device, path):
     the same epoch eager on the card (dropout 0): metrics rtol 1e-4, state
     rtol 1e-4 / atol 1e-5; each kernel launches once a step."""
     from twotower_tpu_torch import bridge
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.device_loop import DeviceDataset, make_epoch_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -365,7 +410,7 @@ def test_dense_and_text_graph_matches_eager(cuda_device, path):
         fn = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, device=cuda_device,
                            capture=capture)
         tok = None if tokens is None else torch.as_tensor(tokens, device=cuda_device)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = fn(state, ds.columns, 0, None, tok, perm=perm)
         out[capture] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
                         [w.launches for w in kernels.WRAPPERS])
@@ -398,7 +443,7 @@ def test_phases_graph_keeps_the_step_and_times_its_phases(cuda_device):
     / atol 1e-5; every kernel launches once a step; each phase reads a
     positive time."""
     from twotower_tpu_torch import bridge
-    from twotower_tpu_torch.ops import kernels
+    from twotower_tpu_torch.ops import build, kernels
     from twotower_tpu_torch.training.device_loop import (
         PHASE_EVERY,
         DeviceDataset,
@@ -423,7 +468,7 @@ def test_phases_graph_keeps_the_step_and_times_its_phases(cuda_device):
         fn = make_epoch_fn(cfg, make_optimizer(cfg.training), ds.num_steps, device=cuda_device)
         if not timed:
             fn._phases = None
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         state, m = fn(state, ds.columns, 0)
         out[timed] = ({k: float(v) for k, v in m.items()}, bridge.state_to_numpy(state),
                       [w.launches for w in kernels.WRAPPERS], fn.phase_ms())

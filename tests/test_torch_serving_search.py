@@ -23,6 +23,7 @@ import torch
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
 from twotower_tpu.ops import topk as jtopk
 from twotower_tpu_torch.ops import topk
+from twotower_tpu_torch.ops.precision import float32_products, matmul_tf32
 
 VARIANTS = ["float32", "bfloat16", "int8", "int8_rowscale"]
 BRANCHES = {
@@ -196,17 +197,17 @@ def test_tf32_stays_off_while_any_thread_is_inside():
     seen, errors = [], []
 
     def thread_a():
-        with topk.float32_products():
+        with float32_products():
             steps["a_in"].set()
             steps["b_in"].wait(5)
         steps["a_out"].set()
 
     def thread_b():
         steps["a_in"].wait(5)
-        with topk.float32_products():
+        with float32_products():
             steps["b_in"].set()
             steps["a_out"].wait(5)
-            seen.append(topk.matmul_tf32())
+            seen.append(matmul_tf32())
             try:
                 topk._chunk_scores(torch.ones(1, 2), torch.ones(3, 2), 0, 3, 3)
             except RuntimeError as e:  # raised if TF32 were back on

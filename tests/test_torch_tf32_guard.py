@@ -23,6 +23,7 @@ _CHILD = r"""
 import sys
 import torch
 from twotower_tpu_torch.ops import topk
+from twotower_tpu_torch.ops.precision import matmul_tf32
 
 case = sys.argv[1]
 gen = torch.Generator().manual_seed(0)
@@ -47,7 +48,7 @@ if case == "new":
 elif case == "legacy":
     assert m.allow_tf32 is True
 else:
-    assert not m.allow_tf32 and not topk.matmul_tf32()
+    assert not m.allow_tf32 and not matmul_tf32()
 print("ok", case)
 """
 

@@ -14,6 +14,7 @@ import torch
 
 from test_torch_bridge import one_torch_thread  # noqa: F401  (autouse fixture)
 from twotower_tpu_torch.ops import kernels
+from twotower_tpu_torch.ops.precision import tf32_split_plain
 
 TEMP = 0.1
 RTOL, ATOL = 5e-3, 1e-5
@@ -53,8 +54,8 @@ def _inputs(batch, dim, rows, off, unit):
 
 
 def _mm(a, b, passes):
-    a_hi, a_lo = kernels.tf32_split_plain(a)
-    b_hi, b_lo = kernels.tf32_split_plain(b)
+    a_hi, a_lo = tf32_split_plain(a)
+    b_hi, b_lo = tf32_split_plain(b)
     if passes == 1:
         return a_hi @ b_hi
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
@@ -83,7 +84,7 @@ def test_split_rounds_to_nearest_ties_away_and_is_exact_to_float32():
         [one + 2**-11, -(one + 2**-11), one + 2**-12, one + 3 * 2**-11, 3.0, 0.0, -1e-30],
         dtype=torch.float32,
     )
-    hi, lo = kernels.tf32_split_plain(x)
+    hi, lo = tf32_split_plain(x)
     # Ties (half a TF32 ulp, 2^-11 at 1.0) go away from zero; below a half
     # rounds down; 1 + 3 * 2^-11 is a tie between 1 + 2^-10 and 1 + 2^-9.
     expect_hi = [one + 2**-10, -(one + 2**-10), one, one + 2**-9, 3.0, 0.0]
@@ -92,7 +93,7 @@ def test_split_rounds_to_nearest_ties_away_and_is_exact_to_float32():
     assert torch.all(bits & 0x1FFF == 0)  # 10 mantissa bits left
     rng = np.random.default_rng(0)
     y = torch.from_numpy(rng.normal(size=10_000).astype(np.float32) * 10.0 ** rng.integers(-3, 4))
-    y_hi, y_lo = kernels.tf32_split_plain(y)
+    y_hi, y_lo = tf32_split_plain(y)
     assert torch.all(y_hi.abs() <= y.abs() * (1 + 2**-11))
     assert torch.all((y_hi + y_lo - y).abs() <= y.abs() * 2**-21)
 

@@ -20,6 +20,7 @@ from twotower_tpu.ops import topk as jtopk
 from twotower_tpu_torch.evaluation import metrics
 from twotower_tpu_torch.models import two_tower
 from twotower_tpu_torch.ops import topk
+from twotower_tpu_torch.ops.precision import float32_products, matmul_tf32
 
 SCORE_TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -120,8 +121,8 @@ def test_tf32_is_off_inside_and_restored():
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        with topk.float32_products():
-            assert not topk.matmul_tf32()
+        with float32_products():
+            assert not matmul_tf32()
         assert torch.backends.cuda.matmul.allow_tf32
         with pytest.raises(RuntimeError, match="TF32"):
             topk._chunk_scores(torch.zeros(1, 2), torch.zeros(3, 2), 0, 3, 3)

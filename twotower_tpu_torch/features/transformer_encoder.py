@@ -35,6 +35,7 @@ import torch
 
 from twotower_tpu_torch.features.text_encoder import PAD_ID, select_first_item_texts
 from twotower_tpu_torch.logging_utils import get_logger
+from twotower_tpu_torch.ops.precision import float32_products
 
 logger = get_logger(__name__)
 
@@ -204,7 +205,6 @@ class TransformerTextEncoder:
         model's default deterministic call), under ``torch.inference_mode()``
         with TF32 off for the float32 products (``float32_products()``).
         """
-        from twotower_tpu_torch.ops.topk import float32_products
         from twotower_tpu_torch.utils.platform import resolve_device
 
         device = resolve_device(device)

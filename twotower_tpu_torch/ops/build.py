@@ -1,27 +1,41 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels, and count their launches.
 
 Each ``.cu`` source under ``ops/csrc/`` is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface, loaded
 with ``ctypes``. The build runs at first use, into ``build/torch_kernels/``
 beside the package (listed in ``.gitignore``); the library's file name
-carries a hash of its source, of every header under ``csrc/`` (the sources
-share ``sm90_tf32.cuh``) and of the flags, so an edited source or header
-is rebuilt and an unchanged one is reused; nvcc's report (``-Xptxas -v``:
-registers and spills a kernel) is kept beside it as ``.log``. Nothing here
-runs at import time: the CPU tests import every module on a machine with
-no ``nvcc``.
+carries a hash of its source, of every header under ``csrc/`` (the loss
+sources share ``sm90_tf32.cuh``, the search sources ``sm90_tma.cuh`` too)
+and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused; nvcc's report (``-Xptxas -v``: registers and
+spills a kernel) is kept beside it as ``.log``. Nothing here runs at import
+time: the CPU tests import every module on a machine with no ``nvcc``.
+
+The wrappers that launch the kernels (``ops/kernels.py``'s loss,
+``ops/prefilter.py``'s search) share the rest: ``on_cpu`` sends CPU tensors
+to the plain versions, ``raise_on`` turns a launch's error into an
+exception, and each wrapper marked ``counted`` counts its launches in
+``<wrapper>.launches``: one set of counts, reset together by
+``reset_launch_counts``. A launch made while a CUDA graph is captured does
+not run then: it is recorded in the ``record_launches()`` record open at
+the time, whose ``replayed()`` adds it to the counts on each replay of the
+graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -100,3 +114,93 @@ def build_all() -> dict[str, Path]:
 def load(source: str) -> ctypes.CDLL:
     """Load one source's library, building it first if needed."""
     return ctypes.CDLL(str(_build(source)))
+
+
+# ---------------------------------------------------------------------------
+# What the kernel wrappers share
+# ---------------------------------------------------------------------------
+
+
+def on_cpu(what: str, *tensors: torch.Tensor) -> bool:
+    """Whether a wrapper's inputs are CPU tensors (its plain version runs);
+    False for tensors on one CUDA device; raises for any other mix."""
+    devs = {t.device for t in tensors}
+    if {d.type for d in devs} == {"cpu"}:
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"{what} inputs must share one CPU or CUDA device, got "
+                         f"{sorted(map(str, devs))}")
+    return False
+
+
+def raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a C pointer."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# Every counted wrapper, in the order their modules define them.
+_COUNTED: list = []
+
+
+def counted(wrapper):
+    """Marks ``wrapper`` as one that counts its kernel's launches in
+    ``wrapper.launches`` (through ``count``)."""
+    wrapper.launches = 0
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+def reset_launch_counts() -> None:
+    for w in _COUNTED:
+        w.launches = 0
+
+
+class LaunchRecord:
+    """The kernel launches of one captured CUDA graph, by wrapper."""
+
+    def __init__(self):
+        self.counts: Counter = Counter()
+
+    def replayed(self, times: int = 1) -> None:
+        """Count the recorded launches once for each of ``times`` replays."""
+        for w, n in self.counts.items():
+            w.launches += n * times
+
+
+# The record of the capture in progress, if any (one capture at a time: the
+# CUDA graph API captures one graph a process under the global mode).
+_capture: list[LaunchRecord] = []
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around a CUDA graph's capture: yields the ``LaunchRecord`` that the
+    launches captured inside go to."""
+    if _capture:
+        raise RuntimeError("record_launches() is already open")
+    rec = LaunchRecord()
+    _capture.append(rec)
+    try:
+        yield rec
+    finally:
+        _capture.clear()
+
+
+def count(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: counted now, or, while the current
+    stream is being captured into a CUDA graph (the launch then runs only on
+    replay), recorded for the replays to count."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+    elif _capture:
+        _capture[0].counts[wrapper] += 1
+    else:
+        raise RuntimeError(
+            f"{wrapper.__name__} captured in a CUDA graph outside record_launches(): "
+            "its replays would go uncounted"
+        )

@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "sm90_tf32.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
 
@@ -78,7 +79,6 @@ constexpr int kStages = 6;     // corpus stages in the ring
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;  // two consumer warpgroups, one producer warp
 constexpr int kRowBytes = kBK * 2;         // a swizzled row: 128 bytes
-constexpr int kSbo = 8 * kRowBytes;        // 8-row groups (a swizzle atom) 1024 bytes apart
 constexpr int kStageBytes = kBN * kRowBytes;   // 16 KB
 constexpr int kAStageBytes = kBM * kRowBytes;  // the query rows at one depth stage: 32 KB
 constexpr int kMaxDepthStages = 4;             // D <= 256
@@ -101,58 +101,6 @@ struct Args {
   uint32_t* flags;        // [query tiles, n_tiles]: bit j, MMA tile j chose a block there
   float* cand;            // [rows, k, 64]
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The box of `map` at element (x, y) (x along the depth) into shared memory
-// at dst by the Tensor Memory Accelerator, completing on bar; elements past
-// the tensor's edge arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
-                                         int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrives on bar and sets the bytes its phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand in the 128-byte
-// swizzle: start address, leading offset 16 (unused by this layout),
-// stride 1024 between 8-row groups, layout 1 (SWIZZLE_128B). A k-step of 16
-// bf16 within a row of 64 starts 32 bytes further on.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
-         ((uint64_t)(kSbo >> 4) << 32) | (1ull << 62);
-}
 
 // d (a 64 x 128 float32 accumulator) = A (64 x 16 bf16, shared memory, da)
 // . B (128 x 16 bf16, shared memory, db)^T, plus d unless scale_d is 0.
@@ -394,69 +342,16 @@ __global__ void __launch_bounds__(256) prefilter_ranks_kernel(const Args a) {
   atomicOr(a.flags + (size_t)(r / kBM) * a.n_tiles + blk / 2, 1u << (r % kBM / 64));
 }
 
-// Opt both tiled kernels in to the shared memory they may take, and read
-// the SM count, once a device.
-cudaError_t prepare(int dev, int& sms) {
-  static int sm_count[64] = {};
-  if (dev < 64 && sm_count[dev] > 0) {
-    sms = sm_count[dev];
-    return cudaSuccess;
-  }
-  cudaError_t err = cudaFuncSetAttribute(prefilter_maxima_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(prefilter_candidates_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64) sm_count[dev] = sms;
-  return err;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// libcuda), looked up once.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled& fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    cudaDriverEntryPointQueryResult status;
-    void* sym = nullptr;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &status);
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || sym == nullptr) return cudaErrorSymbolNotFound;
-    found = reinterpret_cast<EncodeTiled>(sym);
-  }
-  fn = found;
-  return cudaSuccess;
-}
-
-// A tensor map of a [rows, D] bfloat16 matrix read in boxes of box_rows rows
-// by 64 depth, swizzled 128 bytes (the MMAs' layout); past its edges, zeros.
-cudaError_t tensor_map(CUtensorMap* map, const uint16_t* ptr, int rows, int D, int box_rows) {
-  EncodeTiled encode;
-  const cudaError_t err = encoder(encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, (void*)ptr, dims, strides,
-                            box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The shape's tiling, into a; the device's SM count.
 cudaError_t shape(Args& a, int& sms) {
   if (a.rows < 1 || a.n < 1 || a.D < 16 || a.D > kMaxDepthStages * kBK || a.D % 16 != 0)
     return cudaErrorInvalidValue;
+  // Both tiled kernels may take the most shared memory.
+  const SmemOptIn opt_in[2] = {{(const void*)prefilter_maxima_kernel, kMaxSmem},
+                               {(const void*)prefilter_candidates_kernel, kMaxSmem}};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = prepare(dev, sms);
+  if (err == cudaSuccess) err = prepare(dev, sms, opt_in);
   if (err != cudaSuccess) return err;
   a.nk = (a.D + kBK - 1) / kBK;
   a.nblk = (a.n + kBlock - 1) / kBlock;
@@ -472,8 +367,11 @@ cudaError_t launch(Args& a, int mode, cudaStream_t stream) {
   cudaError_t err = shape(a, sms);
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, cmap;
-  err = tensor_map(&qmap, a.q, a.rows, a.D, kBM);
-  if (err == cudaSuccess) err = tensor_map(&cmap, a.c, a.n, a.D, kBN);
+  // bfloat16 rows read in boxes of 64 deep: the query tile's rows, the
+  // corpus tile's.
+  err = tensor_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.q, a.rows, a.D, kBK, kBM);
+  if (err == cudaSuccess)
+    err = tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.c, a.n, a.D, kBK, kBN);
   if (err != cudaSuccess) return err;
   const int q_tiles = (a.rows + kBM - 1) / kBM;
   int slices = max(1, min(sms / q_tiles, a.n_tiles));

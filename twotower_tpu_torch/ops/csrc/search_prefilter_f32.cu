@@ -8,7 +8,7 @@
 // (twotower_tpu/ops/topk.py) is XLA ops: a float32 product of each corpus
 // chunk at Precision.HIGHEST, a max over each 64-row block, a top-k of the
 // blocks, merged. The port ran the same ops (cuBLAS's float32 product on the
-// SIMT units, then a pass over the scores it wrote); ops/prefilter_f32.py
+// SIMT units, then a pass over the scores it wrote); ops/prefilter.py
 // searches through the kernels here instead:
 //   maxima      M[r, j] = max of S[r, c] over the corpus rows c of block j
 //               (64 rows, the last one ragged), written [rows, nblk];
@@ -17,7 +17,7 @@
 //               [rows, k, 64] in the order of the row's list of blocks.
 // The candidates kernel scores the chosen blocks only: its grid is a list
 // of (block, up to kN rows that chose it), built on the card by a sort of
-// the rows' lists (prefilter_f32.py). Each of its work items runs, for its
+// the rows' lists (prefilter.py). Each of its work items runs, for its
 // block, the very MMAs of the maxima kernel's tile of that block: the same
 // instruction, the same 64 corpus rows in the same places, the same split
 // of the same values, the same k-order, the rows' queries as the columns.
@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "sm90_tf32.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
 
@@ -80,7 +81,6 @@ constexpr int kBlock = 64;              // corpus rows a block maximum covers: a
 constexpr int kBC = 2 * kBlock;         // corpus rows a stage: one block a consumer warpgroup
 constexpr int kChunk = 32;              // depth of a stage: 32 float32, 128 bytes a row
 constexpr int kRowBytes = kChunk * 4;   // a swizzled row: 128 bytes
-constexpr int kSbo = 8 * kRowBytes;     // 8-row groups (a swizzle atom) 1024 bytes apart
 constexpr int kStageBytes = kBC * kRowBytes;  // 16 KB
 constexpr int kStages = 5;              // corpus stages in the ring
 constexpr int kConsumerThreads = 256;    // two consumer warpgroups
@@ -124,49 +124,6 @@ __host__ __device__ constexpr int query_tile(int D) {
   return D < 8 || D > kMaxDepth || D % 8 != 0 ? 0 : D <= 128 ? 128 : 64;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// The box of `map` at element (x, y) (x along the depth) into shared memory
-// at dst by the Tensor Memory Accelerator, completing on bar; elements past
-// the tensor's edge arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
-                                         int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrives on bar and sets the bytes its phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
 // Four 8x8 b16 matrices from shared memory, lanes 8 m to 8 m + 7 naming
 // matrix m's rows: r[m] is this thread's row lane / 4, word lane % 4 of it.
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -174,15 +131,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
                : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand in the 128-byte
-// swizzle: start address, leading offset 16 (unused by this layout),
-// stride 1024 between 8-row groups, layout 1 (SWIZZLE_128B). A k-step of 8
-// float32 within a row of 32 starts 32 bytes further on.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
-         ((uint64_t)(kSbo >> 4) << 32) | (1ull << 62);
 }
 
 // d (a 64 x 128 accumulator) = a (registers) . B (shared memory, desc),
@@ -533,75 +481,19 @@ __global__ void __launch_bounds__(kCandThreads, 3)
   candidates_body<64>(a);
 }
 
-// Opt the kernels in to the shared memory they may take, and read the SM
-// count, once a device.
-cudaError_t prepare(int dev, int& sms) {
-  static int sm_count[64] = {};
-  if (dev < 64 && sm_count[dev] > 0) {
-    sms = sm_count[dev];
-    return cudaSuccess;
-  }
-  const void* kernels[4] = {(const void*)prefilter_f32_maxima_kernel,
-                            (const void*)prefilter_f32_maxima_deep_kernel,
-                            (const void*)prefilter_f32_candidates_kernel,
-                            (const void*)prefilter_f32_candidates_deep_kernel};
-  const int smem[4] = {kMaximaSmemMax, kMaximaSmemMax, kCandSmemMax, kCandSmemMax};
-  cudaError_t err = cudaSuccess;
-  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
-    err = cudaFuncSetAttribute(kernels[i], cudaFuncAttributeMaxDynamicSharedMemorySize, smem[i]);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64) sm_count[dev] = sms;
-  return err;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
-// libcuda), looked up once.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled& fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    cudaDriverEntryPointQueryResult status;
-    void* sym = nullptr;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &status);
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || sym == nullptr) return cudaErrorSymbolNotFound;
-    found = reinterpret_cast<EncodeTiled>(sym);
-  }
-  fn = found;
-  return cudaSuccess;
-}
-
-// A tensor map of the [n, D] float32 corpus read in boxes of 128 rows by 32
-// deep, swizzled 128 bytes (ldmatrix's conflict-free layout); past its
-// edges, zeros.
-cudaError_t corpus_map(CUtensorMap* map, const float* ptr, int n, int D) {
-  EncodeTiled encode;
-  const cudaError_t err = encoder(encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)kBC};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)ptr, dims, strides,
-                            box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The shape's tiling, into a; the device's SM count. Queries and corpus
 // 16-byte aligned (the TMA and the queries' 16-byte loads).
 cudaError_t shape(Args& a, int& sms) {
   if (a.rows < 1 || a.n < 1 || query_tile(a.D) == 0 ||
       reinterpret_cast<uintptr_t>(a.q) % 16 != 0 || reinterpret_cast<uintptr_t>(a.c) % 16 != 0)
     return cudaErrorInvalidValue;
+  const SmemOptIn opt_in[4] = {{(const void*)prefilter_f32_maxima_kernel, kMaximaSmemMax},
+                               {(const void*)prefilter_f32_maxima_deep_kernel, kMaximaSmemMax},
+                               {(const void*)prefilter_f32_candidates_kernel, kCandSmemMax},
+                               {(const void*)prefilter_f32_candidates_deep_kernel, kCandSmemMax}};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = prepare(dev, sms);
+  if (err == cudaSuccess) err = prepare(dev, sms, opt_in);
   if (err != cudaSuccess) return err;
   a.nk = query_tile(a.D) == 128 ? 4 : 8;
   a.nblk = (a.n + kBlock - 1) / kBlock;
@@ -637,7 +529,9 @@ int tt_prefilter_f32_maxima(const float* q, const float* c, int rows, int n, int
   cudaError_t err = shape(a, sms);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap cmap;
-  err = corpus_map(&cmap, c, n, dim);
+  // The corpus read in boxes of 128 rows by 32 deep (ldmatrix's
+  // conflict-free layout).
+  err = tensor_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, c, n, dim, kChunk, kBC);
   if (err != cudaSuccess) return (int)err;
   const int tile = query_tile(dim);
   const int q_tiles = (rows + tile - 1) / tile;
@@ -658,7 +552,7 @@ int tt_prefilter_f32_maxima(const float* q, const float* c, int rows, int n, int
 // cand[rows, k, 64]: for each query row and each of its k chosen blocks,
 // the row's 64 scores of that block at the block's rank; slots past the
 // corpus's n rows keep the caller's fill (-inf). The chosen blocks come as
-// the host code sorts them (prefilter_f32.py): order[rows k], the pairs r k
+// the host code sorts them (prefilter.py): order[rows k], the pairs r k
 // + i by block; bounds[nblk + 1], each block's first pair; work_end[nblk],
 // the work items (ceil(pairs / tile) a block) through each block;
 // work_block[items], each item's block (nblk: none).

@@ -14,32 +14,27 @@ The TPU kernel accumulated dV across its sequential grid; GPU blocks run in
 parallel, so dV has its own kernel that recomputes S from the saved ``lse``
 (deterministic, no atomics). Each wrapper takes the plain version only for
 tensors on the CPU; for CUDA tensors it launches its kernel or raises. Each
-counts its launches in ``<wrapper>.launches``, as do the approx search's
-prefilter wrappers and their float32 twins (``SEARCH_WRAPPERS``,
-``ops/prefilter.py``, ``ops/prefilter_f32.py``): one set of
-counts, reset together by ``reset_launch_counts``. A launch made while a
-CUDA graph is captured does not run then: it is recorded in the
-``record_launches()`` record open at the time, whose ``replayed()`` adds it
-to the counts on each replay of the graph.
+counts its launches in ``<wrapper>.launches`` (``build.counted``, with the
+search's wrappers: one set of counts, reset together by
+``build.reset_launch_counts``).
 
 Products keep float32 accuracy, as the JAX wrapper casts U and V to
 float32 and the reference holds the loss to rtol 1e-4: every product of the
 three kernels is three TF32 tensor-core passes (``hi.hi + hi.lo + lo.hi``,
-operands split as ``tf32_split_plain`` does). Each kernel cuts its streamed
-rows into slices that fill the card and merges the slices in a fixed order
-(``fwd_merge_plain`` is the forward's merge), so two launches give the same
-bits.
+operands split as ``precision.tf32_split_plain`` does). Each kernel cuts
+its streamed rows into slices that fill the card and merges the slices in a
+fixed order (``fwd_merge_plain`` is the forward's merge), so two launches
+give the same bits.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from functools import cache
 
 import torch
 
-from twotower_tpu_torch.ops import build, prefilter, prefilter_f32
+from twotower_tpu_torch.ops import build
 from twotower_tpu_torch.ops.losses import NEG_INF, weighted_mean_metrics
 
 _INT32_MAX = 2**31 - 1
@@ -112,22 +107,6 @@ def bwd_dv_plain(u, v, ids, cols, row_offset, lse, g, inv_temp):
     return _ds_plain(u, v, ids, cols, row_offset, lse, g, inv_temp).T @ u
 
 
-def tf32_split_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernels' operand split for three TF32 passes:
-    ``hi = rna(x)`` and ``lo = rna(x - hi)``, where ``rna`` rounds a float32
-    to TF32's 10 mantissa bits, to nearest with ties away from zero, as
-    ``cvt.rna.tf32.f32`` does. ``hi.hi + hi.lo + lo.hi`` then keeps float32
-    accuracy. The tests use it, and the float32 prefilter's plain versions
-    (``ops/prefilter_f32.py``)."""
-
-    def rna(t: torch.Tensor) -> torch.Tensor:
-        bits = t.float().contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-    hi = rna(x)
-    return hi, rna(x - hi)
-
-
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -171,15 +150,6 @@ def _scratch_floats(lib, query: str, own_rows: int, streamed_rows: int, dim: int
     return n
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"fused loss inputs must share one CPU or CUDA device, got {devs}")
-    return False
-
-
 def _check_coverage(rows: int, batch: int, dim: int, row_offset: int) -> None:
     if not supported_block(rows, batch, dim) or not 0 <= row_offset <= batch - rows:
         raise ValueError(
@@ -210,20 +180,12 @@ def _check_cuda(u, v, ids, cols, row_offset, lse=None, g=None) -> tuple[int, int
     return rows, batch, dim
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
+@build.counted
 def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
     """``(loss, lse, correct, pos)`` for the rows of ``u`` at ``row_offset``
     against all rows of ``v``: the forward kernel on CUDA tensors, its plain
     version on CPU tensors."""
-    if _on_cpu(u, v, ids, cols):
+    if build.on_cpu("fused loss", u, v, ids, cols):
         return fwd_plain(u, v, ids, cols, row_offset, inv_temp)
     rows, batch, dim = _check_cuda(u, v, ids, cols, row_offset)
     # The kernel cuts the columns into slices; their per-row statistics go
@@ -236,10 +198,10 @@ def fused_fwd(u, v, ids, cols, row_offset: int, inv_temp: float):
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         rows, batch, dim, row_offset, inv_temp,
         loss.data_ptr(), lse.data_ptr(), correct.data_ptr(), pos.data_ptr(),
-        out.data_ptr() + 16 * rows if n else None, _stream(u),
+        out.data_ptr() + 16 * rows if n else None, build.stream(u),
     )
-    _raise_on(rc, "fused_loss_fwd_kernel")
-    _count(fused_fwd)
+    build.raise_on(rc, "fused_loss_fwd_kernel")
+    build.count(fused_fwd)
     return loss, lse, correct, pos
 
 
@@ -255,92 +217,35 @@ def _bwd(fn_name: str, out_rows_of_v: bool, u, v, ids, cols, row_offset, lse, g,
     rc = getattr(_bwd_lib(), fn_name)(
         u.data_ptr(), v.data_ptr(), ids.data_ptr(), cols.data_ptr(),
         lse.data_ptr(), g.data_ptr(), rows, batch, dim, row_offset, inv_temp,
-        out.data_ptr(), None if scratch is None else scratch.data_ptr(), _stream(u),
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), build.stream(u),
     )
-    _raise_on(rc, fn_name)
+    build.raise_on(rc, fn_name)
     return out
 
 
+@build.counted
 def fused_bwd_du(u, v, ids, cols, row_offset: int, lse, g, inv_temp: float):
     """``dU = dS . V`` (``[R, D]``): the row-parallel kernel on CUDA tensors,
     its plain version on CPU tensors."""
-    if _on_cpu(u, v, ids, cols, lse, g):
+    if build.on_cpu("fused loss", u, v, ids, cols, lse, g):
         return bwd_du_plain(u, v, ids, cols, row_offset, lse, g, inv_temp)
     du = _bwd("tt_fused_loss_bwd_du", False, u, v, ids, cols, row_offset, lse, g, inv_temp)
-    _count(fused_bwd_du)
+    build.count(fused_bwd_du)
     return du
 
 
+@build.counted
 def fused_bwd_dv(u, v, ids, cols, row_offset: int, lse, g, inv_temp: float):
     """``dV = dS^T . U`` (``[B, D]``): the column-parallel kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if _on_cpu(u, v, ids, cols, lse, g):
+    if build.on_cpu("fused loss", u, v, ids, cols, lse, g):
         return bwd_dv_plain(u, v, ids, cols, row_offset, lse, g, inv_temp)
     dv = _bwd("tt_fused_loss_bwd_dv", True, u, v, ids, cols, row_offset, lse, g, inv_temp)
-    _count(fused_bwd_dv)
+    build.count(fused_bwd_dv)
     return dv
 
 
-fused_fwd.launches = 0
-fused_bwd_du.launches = 0
-fused_bwd_dv.launches = 0
 WRAPPERS = (fused_fwd, fused_bwd_du, fused_bwd_dv)  # the loss's: one launch each a step
-# The approx search's over a bfloat16 corpus and the two-pass search's over a
-# float32 one: one launch each a launch of query rows
-# (``prefilter.topk_prefilter``, ``prefilter_f32.topk_prefilter_f32``).
-SEARCH_WRAPPERS = (prefilter.block_maxima, prefilter.block_candidates,
-                   prefilter_f32.block_maxima_f32, prefilter_f32.block_candidates_f32)
-
-
-def reset_launch_counts() -> None:
-    for w in WRAPPERS + SEARCH_WRAPPERS:
-        w.launches = 0
-
-
-class LaunchRecord:
-    """The kernel launches of one captured CUDA graph, by wrapper."""
-
-    def __init__(self):
-        self.counts = {w: 0 for w in WRAPPERS + SEARCH_WRAPPERS}
-
-    def replayed(self, times: int = 1) -> None:
-        """Count the recorded launches once for each of ``times`` replays."""
-        for w, n in self.counts.items():
-            w.launches += n * times
-
-
-# The record of the capture in progress, if any (one capture at a time: the
-# CUDA graph API captures one graph a process under the global mode).
-_capture: list[LaunchRecord] = []
-
-
-@contextlib.contextmanager
-def record_launches():
-    """Around a CUDA graph's capture: yields the ``LaunchRecord`` that the
-    launches captured inside go to."""
-    if _capture:
-        raise RuntimeError("record_launches() is already open")
-    rec = LaunchRecord()
-    _capture.append(rec)
-    try:
-        yield rec
-    finally:
-        _capture.clear()
-
-
-def _count(wrapper) -> None:
-    """One launch of ``wrapper``'s kernel: counted now, or, while the current
-    stream is being captured into a CUDA graph (the launch then runs only on
-    replay), recorded for the replays to count."""
-    if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
-    elif _capture:
-        _capture[0].counts[wrapper] += 1
-    else:
-        raise RuntimeError(
-            f"{wrapper.__name__} captured in a CUDA graph outside record_launches(): "
-            "its replays would go uncounted"
-        )
 
 
 # ---------------------------------------------------------------------------

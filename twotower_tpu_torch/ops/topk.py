@@ -7,22 +7,17 @@ candidate blocks), and the serving search ``topk_mips_approx`` over a
 corpus resident in float32, bfloat16 or int8 (``quantize_corpus``). These
 are XLA ops in the JAX package, not Pallas kernels, so they port to library
 products and ``torch.topk``, except the serving search over a large
-bfloat16 corpus, which goes through the block-maxima prefilter of
-``ops/prefilter.py`` (a kernel on the card that keeps the scores on chip),
-and, on the card, the two-pass search over a large float32 corpus, which
-goes through its float32 twin, ``ops/prefilter_f32.py``.
+bfloat16 corpus and, on the card, the two-pass search over a large float32
+corpus, which go through the block-maxima prefilter of ``ops/prefilter.py``
+(kernels on the card that keep the scores on chip).
 
 Scores are float32. A float32 corpus is multiplied with TF32 off (the JAX
 exact code asks for ``Precision.HIGHEST``): every product runs inside
-``float32_products()``, which holds the process-wide TF32 switch off while
-any thread is inside and restores the caller's setting after (the switch is
-``torch.backends.cuda.matmul.fp32_precision`` where PyTorch has it, else the
-legacy ``allow_tf32``); the float32 prefilter's kernels instead take
-three TF32 tensor-core passes of split operands, which keep float32
-accuracy (``ops/prefilter_f32.py``).
-A bfloat16 corpus meets bfloat16 queries and accumulates in float32,
-returned in float32, never rounded to bfloat16 (``_scores``). An int8
-corpus meets per-row quantized queries in exact integer arithmetic.
+``precision.float32_products()``; the float32 prefilter's kernels instead
+take three TF32 tensor-core passes of split operands, which keep float32
+accuracy. A bfloat16 corpus meets bfloat16 queries and accumulates in
+float32, returned in float32, never rounded to bfloat16 (``_scores``). An
+int8 corpus meets per-row quantized queries in exact integer arithmetic.
 
 The corpus is read in slices, never padded by a copy: a slice past the last
 real row is simply shorter, and rows at index >= ``num_valid`` are never
@@ -34,13 +29,11 @@ ids.
 
 from __future__ import annotations
 
-import contextlib
-import threading
-
 import torch
 import torch.nn.functional as F
 
-from twotower_tpu_torch.ops import prefilter, prefilter_f32
+from twotower_tpu_torch.ops import prefilter
+from twotower_tpu_torch.ops.precision import float32_products, matmul_tf32
 from twotower_tpu_torch.utils import profiling
 
 
@@ -85,70 +78,6 @@ def exact_scan_chunk(batch_rows: int) -> int:
     mem_cap = (2 << 30) // (4 * max(batch_rows, 1))
     capped = min(131072, max(8192, mem_cap))
     return 1 << (capped.bit_length() - 1)
-
-
-_MATMUL = torch.backends.cuda.matmul
-# PyTorch 2.9 and later: ``fp32_precision`` ("ieee", "tf32" or "none", the
-# latter inheriting the global ``torch.backends.fp32_precision``). Once a
-# process sets it, reading the legacy ``allow_tf32`` raises, so where it
-# exists the guard reads and writes it alone.
-_NEW_TF32_API = hasattr(_MATMUL, "fp32_precision")
-
-
-def matmul_tf32() -> bool:
-    """Whether float32 CUDA products may use TF32 now, read through the API
-    this PyTorch has (never the legacy flag where the new one exists)."""
-    if _NEW_TF32_API:
-        return _MATMUL.fp32_precision == "tf32"
-    return bool(_MATMUL.allow_tf32)
-
-
-class _TF32Off:
-    """Holds the process-wide TF32 switch off while any thread is inside
-    ``float32_products()``: the first to enter saves the caller's setting,
-    the last to leave restores it. A save and restore per thread would let
-    one thread restore TF32 while another is mid-product (the serving front
-    searches from several executor threads at once)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved: str | bool = False
-
-    def enter(self) -> None:
-        with self._lock:
-            if self._depth == 0:
-                if _NEW_TF32_API:
-                    self._saved = _MATMUL.fp32_precision
-                    _MATMUL.fp32_precision = "ieee"
-                else:
-                    self._saved = _MATMUL.allow_tf32
-                    _MATMUL.allow_tf32 = False
-            self._depth += 1
-
-    def leave(self) -> None:
-        with self._lock:
-            self._depth -= 1
-            if self._depth == 0:
-                if _NEW_TF32_API:
-                    _MATMUL.fp32_precision = self._saved
-                else:
-                    _MATMUL.allow_tf32 = self._saved
-
-
-# One guard for the process, as the flag it guards is one for the process.
-_TF32_OFF = _TF32Off()
-
-
-@contextlib.contextmanager
-def float32_products():
-    """TF32 off for the enclosed float32 products; the caller's setting is
-    restored when the last thread inside leaves."""
-    _TF32_OFF.enter()
-    try:
-        yield
-    finally:
-        _TF32_OFF.leave()
 
 
 def _check(n: int, k: int, num_valid: int | None) -> int:
@@ -315,7 +244,7 @@ def topk_mips_twopass(
     block maxima were taken over, and no row is gathered. On the CPU they
     are the chunk product's, so they equal ``query @ item_emb.T`` bit for
     bit. On the card a float32 corpus of depth a multiple of 8 up to 256
-    (``prefilter_f32.applies``, ``block`` 64) goes through the float32
+    (``prefilter.F32.applies``, ``block`` 64) goes through the float32
     prefilter's kernels inside the span ``search.twopass_prefilter``: three
     TF32 tensor-core passes of split operands, float32-accurate but not
     bit for bit a float32 product, each score independent of the batch and
@@ -330,7 +259,7 @@ def topk_mips_twopass(
         raise ValueError(f"block={block} exceeds chunk_size={chunk_size}")
     if _on_the_float32_prefilter(item_emb, k, block, n_real):
         with profiling.span("search.twopass_prefilter"):
-            return prefilter_f32.topk_prefilter_f32(
+            return prefilter.topk_prefilter(
                 query_emb, item_emb[:n_real].contiguous(), k, n_real,
                 query_emb.shape[0] * chunk_size)
     # A block multiple (the block reshape needs it).
@@ -342,10 +271,10 @@ def topk_mips_twopass(
 
 def _on_the_float32_prefilter(item_emb: torch.Tensor, k: int, block: int, n_real: int) -> bool:
     """Whether ``topk_mips_twopass`` takes the float32 prefilter: a corpus on
-    the card that ``prefilter_f32.applies`` to, at its block of 64 rows. On
+    the card that ``prefilter.F32.applies`` to, at its block of 64 rows. On
     the CPU the search stays the chunked scan of the blocks."""
-    return (item_emb.device.type == "cuda" and block == prefilter_f32.BLOCK
-            and prefilter_f32.applies(item_emb, k, n_real))
+    return (item_emb.device.type == "cuda" and block == prefilter.BLOCK
+            and prefilter.F32.applies(item_emb, k, n_real))
 
 
 def _twopass_core(query, item_emb, k: int, chunk_size: int, block: int, n_real: int):
@@ -477,12 +406,12 @@ def topk_mips_approx(
     their top-ks exactly.
 
     A bfloat16 corpus meets bfloat16 queries, accumulating and returning
-    float32 (``_scores``). Where ``prefilter.applies`` (depth a multiple of
-    16 up to 256, more than ``4 k`` blocks of 64 rows) such a search takes
-    the exact block-maxima prefilter of ``ops/prefilter.py`` instead, inside
-    the span ``search.prefilter``: the same top-k without writing the
-    scores, and with a launch's maxima and candidates within the same
-    budget. With ``item_scale`` (from ``quantize_corpus``) the
+    float32 (``_scores``). Where ``prefilter.BF16.applies`` (depth a
+    multiple of 16 up to 256, more than ``4 k`` blocks of 64 rows) such a
+    search takes the exact block-maxima prefilter of ``ops/prefilter.py``
+    instead, inside the span ``search.prefilter``: the same top-k without
+    writing the scores, and with a launch's maxima and candidates within
+    the same budget. With ``item_scale`` (from ``quantize_corpus``) the
     corpus is int8: the queries are quantized per row and scored in exact
     integers (``_int8_scores``); a scalar scale, and the queries' per-row
     scales, multiply the final ``[B, k]`` values only, while a ``[N]`` scale
@@ -510,7 +439,7 @@ def topk_mips_approx(
     dev = item_emb.device
     if b == 0:
         return torch.zeros((0, k), device=dev), torch.zeros((0, k), dtype=torch.long, device=dev)
-    if not quantized and prefilter.applies(item_emb, k, n_valid):
+    if not quantized and prefilter.BF16.applies(item_emb, k, n_valid):
         with profiling.span("search.prefilter"):
             return prefilter.topk_prefilter(query_emb, item_emb[:n_valid].contiguous(), k,
                                             n_valid, query_chunk * item_chunk)

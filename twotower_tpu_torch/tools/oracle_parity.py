@@ -148,13 +148,13 @@ class CountingRunner:
     def __call__(self, module: str, argv: list[str]) -> str:
         if not module.endswith(".train"):
             return self.other(module, argv)
-        from twotower_tpu_torch.ops import kernels
+        from twotower_tpu_torch.ops import build, kernels
 
         skips: list[str] = []
         handler = _SkipsKept(skips)
         log = logging.getLogger("twotower_tpu_torch.utils.checkpoint")
         log.addHandler(handler)
-        kernels.reset_launch_counts()
+        build.reset_launch_counts()
         try:
             out = in_process_runner(module, argv)
         finally:

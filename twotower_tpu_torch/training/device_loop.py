@@ -260,14 +260,14 @@ class _EpochProgram:
         """The step as a CUDA graph (with ``phases``: recording their
         events; with ``pool``: allocating from that graph pool) and the
         record of the kernels' launches in it."""
-        from twotower_tpu_torch.ops import kernels
+        from twotower_tpu_torch.ops import build
 
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
         if hasattr(self._step, "dropout_gen"):  # a mesh step's own masks
             graph.register_generator_state(self._step.dropout_gen)
         marks = contextlib.nullcontext() if phases is None else phases.capturing()
-        with kernels.record_launches() as record, marks:
+        with build.record_launches() as record, marks:
             with torch.cuda.graph(graph, pool=pool, stream=self._stream):
                 self._body(*self._args)
         return graph, record
