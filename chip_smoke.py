@@ -90,9 +90,19 @@
    weights drawn on the card: SEQ_STEPS eager steps of
    training/seq_step.py over random users' windows (the last stream half
    padding, weight 0), with launch counts set to 0 just before and read
-   just after: each loss kernel once a step, finite losses. Prints the
-   step's ms and the peak device memory. python3 chip_smoke.py --seq-only
-   runs phases 1-3 and 5e alone (no result line).
+   just after: each loss kernel once a step, finite losses, and a layer's
+   attention kernels a step: the forward twice (once more by
+   recomputation), dQ and dK/dV once; then the same streams as a
+   device-loop epoch, the step captured as a CUDA graph, whose record
+   holds those launches a step. Prints the step's ms and the peak device
+   memory.
+5f. The sequence tower's block attention kernels (ops/attention.py) at
+   seq_dsv2lite_train's shape (32,768 slots of random windows of 1-64, 16
+   heads of 128 + 64 and 128): against their plain versions, then each
+   kernel's ms, back-to-back ms and host us, its bound, the plain
+   versions' ms, and F.scaled_dot_product_attention with the boolean mask
+   as library_ms (the port never calls it). python3 chip_smoke.py
+   --seq-only runs phases 1-3, 5e and 5f alone (no result line).
 6. Card against CPU, small: the train-model and evaluate-model CLIs, in
    process through main(argv), at the CLI tests' sizes (200 users, 100
    items, 5000 interactions, embedding 16, towers [32,16], batch 64,
@@ -636,10 +646,22 @@ def build_report(paths: dict[str, Path]) -> dict[str, dict]:
                         "tensor_core_instructions": sass[src][mangled]}
         log(f"  {fn} ({src}): {regs} registers, spill stores {spill_st} B, spill loads "
             f"{spill_ld} B, HMMA/HGMMA instructions in SASS {sass[src][mangled]}")
+    # The sequence tower's attention kernels: each kind at each instantiated
+    # (window, dn, dr, dv), all with tensor-core instructions.
+    src = "stream_attention.cu"
+    for mangled in sorted(k for k in sass.get(src, {}) if "stream_attention_" in k):
+        m = re.search(r"(stream_attention_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+        name = f"{m.group(1)}<{','.join(m.group(2, 3, 4, 5))}>"
+        regs, spill_st, spill_ld = ptxas[src][mangled]
+        report[name] = {"registers": regs, "spill_bytes": spill_st + spill_ld,
+                        "tensor_core_instructions": sass[src][mangled]}
+        log(f"  {name} ({src}): {regs} registers, spill stores {spill_st} B, spill loads "
+            f"{spill_ld} B, HMMA/HGMMA instructions in SASS {sass[src][mangled]}")
     spilled = [k for k, r in report.items() if r["spill_bytes"]]
     if spilled:
         raise RuntimeError(f"kernels spill registers: {spilled}")
-    no_tc = [k for k in TENSOR_CORE_KERNELS if not report[k]["tensor_core_instructions"]]
+    no_tc = [k for k in (*TENSOR_CORE_KERNELS, *(k for k in report if k.startswith(
+        "stream_attention_"))) if not report[k]["tensor_core_instructions"]]
     if no_tc:
         raise RuntimeError(f"no tensor-core instruction in the SASS of {no_tc}")
     return report
@@ -1305,8 +1327,9 @@ def run_seq_steps(card: str) -> dict:
     once a step."""
     from twotower_tpu_torch.config import load_config
     from twotower_tpu_torch.data.sequences import StreamDataset
-    from twotower_tpu_torch.ops import build, kernels
+    from twotower_tpu_torch.ops import attention, build, kernels
     from twotower_tpu_torch.training import init_train_state, make_optimizer, make_train_step
+    from twotower_tpu_torch.training.device_loop import make_epoch_fn
 
     cfg = load_config(SEQ_CONFIG)
     if (cfg.model.user_tower, cfg.training.batch_size) != ("sequence", SEQ_B):
@@ -1327,7 +1350,8 @@ def run_seq_steps(card: str) -> dict:
         raise RuntimeError(f"{data.num_steps} streams, not {SEQ_STEPS}")
     counts = np.bincount(rng.integers(0, SEQ_ITEMS, n), minlength=state.params[
         "item_embedding"].shape[0])
-    step = make_train_step(cfg, opt, np.log((counts + 1) / (counts.sum() + len(counts))))
+    step_log_q = np.log((counts + 1) / (counts.sum() + len(counts)))
+    step = make_train_step(cfg, opt, step_log_q)
     gen = torch.Generator(device="cuda").manual_seed(1)
     build.reset_launch_counts()
     losses, step_ms = [], []
@@ -1343,13 +1367,139 @@ def run_seq_steps(card: str) -> dict:
         raise RuntimeError(f"sequence steps: launches {launches}, not one a step")
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"non-finite loss in the sequence steps: {losses}")
+    # Attention a layer a step: the forward twice (and again by
+    # recomputation), dQ and dK/dV once each.
+    layers = cfg.model.sequence.num_hidden_layers
+    per_step = {"attention_fwd": 2 * layers, "attention_dq": layers, "attention_dkv": layers}
+    eager = {w.__name__: w.launches for w in attention.WRAPPERS}
+    if eager != {k: v * SEQ_STEPS for k, v in per_step.items()}:
+        raise RuntimeError(f"sequence steps: attention launches {eager}, not {per_step} a step")
+    # The same steps through the device loop, the step captured as a CUDA
+    # graph: the capture's record holds the launches of one step.
+    build.reset_launch_counts()
+    prog = make_epoch_fn(cfg, opt, data.num_steps, num_items=SEQ_ITEMS, device="cuda")
+    state, _ = prog(state, data.columns, 1, torch.as_tensor(step_log_q, dtype=torch.float32,
+                                                            device="cuda"))
+    torch.cuda.synchronize()
+    captured = {w.__name__: prog._record.counts[w] for w in attention.WRAPPERS}
+    replayed = {w.__name__: w.launches for w in attention.WRAPPERS}
+    if captured != per_step or replayed != {k: v * SEQ_STEPS for k, v in per_step.items()}:
+        raise RuntimeError(f"captured sequence step: attention launches {captured} a step and "
+                           f"{replayed} in {SEQ_STEPS} steps, not {per_step} a step")
+    log(f"  attention launches a step, eager and captured: {captured} ({layers} layers)")
     log(f"  {SEQ_STEPS} steps of {SEQ_B} slots ({data.num_examples} with a target), losses "
         f"{[round(x, 4) for x in losses]}, step ms {[round(x, 1) for x in step_ms]}; launches "
         f"{launches} (one a step); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
-    del state, data, step
+    del state, data, step, prog
     torch.cuda.empty_cache()
-    return {"launches": row_launches(launches), "losses": losses, "step_ms": step_ms}
+    return {"launches": row_launches(launches), "losses": losses, "step_ms": step_ms,
+            "attention_launches_a_step": captured}
+
+
+# seq_dsv2lite_train's attention: (window, dn, dr, dv, heads), its stream.
+ATTN_SHAPE = (64, 128, 64, 128, 16)
+
+
+def run_attention(card: str) -> dict:
+    """Phase 5f: the sequence tower's block attention kernels at
+    seq_dsv2lite_train's shape against their plain versions (each output
+    within 1e-2 of its norm, lse within 1e-4), and their times: each
+    kernel's ms (events around one call) and back to back, its bound (the
+    larger of its bytes at 3.35 TB/s and its products at 989 TFLOP/s, as
+    perfbench's seq_attention_roofline counts them), the plain versions'
+    ms, and as library_ms one PyTorch call of the same function, never run
+    by the port: F.scaled_dot_product_attention over the copied key blocks
+    with the boolean mask (forward; backward by autograd)."""
+    import torch.nn.functional as F
+
+    from twotower_tpu_torch.ops import attention
+
+    w, dn, dr, dv, h = ATTN_SHAPE
+    n = SEQ_B
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, kv, k_pe, dout = draw(n, h, dn + dr), draw(n, h, dn + dv), draw(n, dr), draw(n, h * dv)
+    lens = torch.randint(1, w + 1, (n,), generator=gen, device="cuda")
+    ends = torch.cumsum(lens, 0)
+    starts = (ends - lens)[ends - lens < n]
+    pos = torch.arange(n, device="cuda")
+    pos = (pos - starts[torch.searchsorted(starts, pos, right=True) - 1]).int()
+    scale = 1.26 ** 2 / math.sqrt(dn + dr)
+    args = (q, kv, k_pe, pos, w, scale)
+
+    def fwd():
+        return attention.attention_fwd(*args)
+
+    out, lse = fwd()
+
+    def dq():
+        return attention.attention_dq(*args, out, lse, dout)
+
+    _, delta = dq()
+
+    def dkv():
+        return attention.attention_dkv(*args, lse, delta, dout)
+
+    def bwd():
+        _, d = attention.attention_dq(*args, out, lse, dout)
+        return attention.attention_dkv(*args, lse, d, dout)
+
+    got = (*fwd(), *dq(), *dkv())
+    out_p, lse_p = attention.fwd_plain(*args)
+    dq_p, delta_p = attention.dq_plain(*args, out, lse, dout)
+    dkv_p, dkpe_p = attention.dkv_plain(*args, lse, delta, dout)
+    errs = {name: float((a.float() - b.float()).norm() / b.float().norm())
+            for name, a, b in zip(("out", "lse", "dq", "delta", "dkv", "dk_pe"), got,
+                                  (out_p, lse_p, dq_p, delta_p, dkv_p, dkpe_p))}
+    if max(errs.values()) > 1e-2 or float((got[1] - lse_p).abs().max()) > 1e-4:
+        raise RuntimeError(f"attention kernels against their plain versions: {errs}")
+    # The library's call: the blocks built beforehand, the boolean mask.
+    nb = n // w
+    blocks = attention._Plain(*args)
+    qb = q.reshape(nb, w, h, dn + dr).transpose(1, 2).contiguous().requires_grad_(True)
+    kb = blocks.k.to(torch.bfloat16).contiguous().requires_grad_(True)
+    vb = blocks.v.to(torch.bfloat16).contiguous().requires_grad_(True)
+    mask = blocks.mask.contiguous()
+    gb = dout.reshape(nb, w, h, dv).transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=scale)
+
+    lib_out = lib_fwd()
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qb, kb, vb), gb, retain_graph=True)
+
+    s = attention._widths(q, kv, k_pe)
+    inputs = n * (h * (dn + dr) + h * dn + dr + h * dv)
+    work = {"fwd": (2 * n * h * 2 * w * (dn + dr + dv), 2 * inputs + 2 * n * h * dv + 4 * n * h),
+            "bwd": (2 * n * h * 2 * w * (2 * dv + 2 * (dn + dr)),
+                    4 * inputs + 4 * n * h * dv + 4 * n * h)}
+    rows = []
+    for name, fn, plain, lib in (("fwd", fwd, lambda: attention.fwd_plain(*args), lib_fwd),
+                                 ("bwd", bwd, lambda: (attention.dq_plain(*args, out, lse, dout),
+                                                       attention.dkv_plain(*args, lse, delta,
+                                                                           dout)), lib_bwd),
+                                 ("dq", dq, None, None), ("dkv", dkv, None, None)):
+        ms = time_ms(fn)
+        row = {"kernel": f"stream_attention_{name}", "shape": list(s), "ms": ms,
+               "ms_batched": time_ms_batched(fn), "host_us": host_us(fn, reps=50)}
+        if name in work:
+            flops, nbytes = work[name]
+            bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+            row.update(bound_ms=bound, share_of_bound=bound / ms,
+                       share_of_bound_batched=bound / row["ms_batched"],
+                       plain_ms=time_ms(plain, reps=3, warm=1), library_ms=time_ms(lib, reps=5))
+        rows.append(row)
+    log(f"  attention at {n} slots, {h} heads, window {w}: rel errs {errs}; "
+        f"{json.dumps(rows)} ({card})")
+    del qb, kb, vb, lib_out, blocks
+    torch.cuda.empty_cache()
+    return {"errors": errs, "rows": rows}
 
 
 def profile_device(fn, n: int, per: str) -> tuple[float, dict[str, int], dict[str, float]]:
@@ -4374,10 +4524,12 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     errs = check_kernels(CHECK_SHAPES)
 
-    if sys.argv[1:] == ["--seq-only"]:  # a partial run: phases 1-3 and 5e, no result line
+    if sys.argv[1:] == ["--seq-only"]:  # a partial run: phases 1-3, 5e and 5f, no result line
         log("phase 5e: the sequence user tower's steps at full width")
         run_seq_steps(card)
-        log("phases 1-3 and 5e passed (a partial run: no result line)")
+        log("phase 5f: the sequence tower's block attention kernels")
+        log(json.dumps({"stream_attention": run_attention(card)}))
+        log("phases 1-3, 5e and 5f passed (a partial run: no result line)")
         return 0
 
     if sys.argv[1:] == ["--mesh-only"]:  # a partial run: phases 1-3, 10 and 8c, no result line
@@ -4418,6 +4570,10 @@ def main() -> int:
 
     log("phase 5e: the sequence user tower's steps at full width")
     seq = run_seq_steps(card)
+
+    log("phase 5f: the sequence tower's block attention kernels")
+    attention_rows = run_attention(card)
+    log(json.dumps({"stream_attention": attention_rows}))
 
     log("phase 6: train-model and evaluate-model, card against CPU, small")
     for variant in CLI_VARIANTS:

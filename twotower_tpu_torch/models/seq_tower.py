@@ -20,8 +20,8 @@ Packed streams: a step's slots are many users' windows laid end to end,
 Attention is causal within a window and never reaches into another; RoPE
 positions restart at each window. A window holds at most ``max_window``
 slots, so a query's keys lie in its own block of ``max_window`` slots or
-the one before, and attention runs over blocks of ``max_window`` queries
-against ``2 * max_window`` keys.
+the one before (``ops/attention.py``: one kernel of the blocks' scores,
+mask, softmax and values on the card, forward and backward).
 
 Each attention and feed-forward block keeps only its input for the backward
 and runs again there (activation recomputation).
@@ -33,9 +33,12 @@ run as grouped GEMMs (``torch._grouped_mm``) over it.
 
 Precision: with ``compute_dtype`` bfloat16 every product takes bfloat16
 operands (the float32 master weights cast each step) and accumulates in
-float32 on the tensor cores, returning bfloat16; norms, softmaxes, RoPE and
-the router run in float32, and the residual stream is float32. With
-float32 everything is float32 (the CPU tests' setting).
+float32 on the tensor cores, returning bfloat16, except attention's scores:
+they stay float32 from their product through the mask and the softmax, and
+are not rounded to bfloat16 (the probabilities are, for their product with
+the values). Norms, softmaxes, RoPE and the router run in float32, and the
+residual stream is float32. With float32 everything is float32 (the CPU
+tests' setting).
 
 The balance loss is DeepSeek-V2's expert-level one, per user window:
 ``alpha * sum_i f_i P_i`` with ``f_i = N / (K T) * sum_t 1(t routes to i)``
@@ -68,6 +71,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from twotower_tpu_torch.ops.attention import stream_attention
 from twotower_tpu_torch.utils import profiling
 
 ALIGN = 16  # rows of each expert's group in the sorted buffer: a multiple of this
@@ -196,48 +200,21 @@ def _swiglu(x: torch.Tensor, p: dict, cd: torch.dtype) -> torch.Tensor:
     return _lin(F.silu(g) * u, p["down"], cd)
 
 
-def stream_mask(pos: torch.Tensor, window: int) -> torch.Tensor:
-    """``[S / window, window, 2 window]`` bool: query ``i`` of block ``b``
-    (slot ``b W + i``) against key ``j`` (slot ``(b - 1) W + j``) of its
-    block and the one before: causal and within the query's window, which
-    starts at slot ``q - pos[q]``."""
-    s = pos.shape[0]
-    nb = s // window
-    dev = pos.device
-    q = torch.arange(s, device=dev).view(nb, window, 1)
-    k = ((torch.arange(nb, device=dev) - 1) * window)[:, None] + torch.arange(
-        2 * window, device=dev)[None, :]
-    k = k[:, None, :]
-    start = q - pos.view(nb, window, 1).long()
-    return (k <= q) & (k >= start) & (k >= 0)
-
-
 def attention(p: dict, x: torch.Tensor, ctx: "_Stream") -> torch.Tensor:
-    """MLA over the stream (``x``: the normed input ``[S, H]``)."""
+    """MLA over the stream (``x``: the normed input ``[S, H]``): the
+    projections here, the block attention over them in
+    ``ops/attention.py``."""
     s, cd = ctx.cfg, ctx.cd
     n = x.shape[0]
     nh, dn, dr, dv = s.num_attention_heads, s.qk_nope_head_dim, s.qk_rope_head_dim, s.v_head_dim
     q = _lin(x, p["q"], cd).view(n, nh, dn + dr)
-    q_nope, q_pe = q.split([dn, dr], dim=-1)
+    q_pe = q[..., dn:]
+    q_pe.copy_(_rope(q_pe, ctx.cos[:, None, :], ctx.sin[:, None, :]))  # in place in q
     c, k_pe = _lin(x, p["kv_a"], cd).split([s.kv_lora_rank, dr], dim=-1)
     c = rms_norm(c, p["kv_norm"], s.rms_norm_eps)
-    k_nope, v = _lin(c, p["kv_b"], cd).view(n, nh, dn + dv).split([dn, dv], dim=-1)
-    cos, sin = ctx.cos[:, None, :], ctx.sin[:, None, :]
-    q = torch.cat([q_nope, _rope(q_pe, cos, sin)], dim=-1)
-    k = torch.cat([k_nope, _rope(k_pe[:, None, :], cos, sin).expand(n, nh, dr)], dim=-1)
-    w = s.max_window
-    nb = n // w
-
-    def keys(t: torch.Tensor) -> torch.Tensor:  # [nb, nh, 2w, d]: the block before, then its own
-        t = t.reshape(nb, w, nh, t.shape[-1])
-        t = torch.cat([t.new_zeros((1,) + t.shape[1:]), t], dim=0)
-        return torch.cat([t[:-1], t[1:]], dim=1).transpose(1, 2)
-
-    qb = q.reshape(nb, w, nh, dn + dr).transpose(1, 2)
-    scores = torch.matmul(qb, keys(k).transpose(-1, -2)).float() * ctx.scale
-    scores = scores.masked_fill(~ctx.mask[:, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(cd)
-    out = torch.matmul(probs, keys(v)).transpose(1, 2).reshape(n, nh * dv)
+    kv = _lin(c, p["kv_b"], cd).view(n, nh, dn + dv)  # k_nope | v
+    out = stream_attention(q, kv, _rope(k_pe, ctx.cos, ctx.sin), ctx.pos, s.max_window,
+                           ctx.scale)
     return _lin(out, p["o"], cd)
 
 
@@ -329,10 +306,10 @@ def balance_loss(scores, experts, weight, window, alpha: float):
 
 class _Stream:
     """What every block of one stream reads: the configuration, the compute
-    dtype, RoPE at each slot, the attention mask, each slot's window and
-    weight; and, during the stream's forward only (not when the backward
-    runs a block again), the phase events of a timed capture and the
-    routes' hook."""
+    dtype, each slot's place in its window and RoPE there, each slot's
+    window and weight; and, during the stream's forward only (not when the
+    backward runs a block again), the phase events of a timed capture and
+    the routes' hook."""
 
     def __init__(self, config, pos: torch.Tensor, weight: torch.Tensor, cd):
         s = self.cfg = config.sequence
@@ -343,7 +320,7 @@ class _Stream:
                              f"max_window={s.max_window}")
         cos, sin = rope_tables(s, pos.device)
         self.cos, self.sin = cos[pos.long()], sin[pos.long()]
-        self.mask = stream_mask(pos, s.max_window)
+        self.pos = pos.to(torch.int32)
         self.window = torch.cumsum((pos == 0).long(), 0) - 1  # a stream starts a window
         self.weight = weight
         self.scale = softmax_scale(s)

@@ -5,14 +5,16 @@ Hopper (``sm_90a``) into a shared library with a plain C interface, loaded
 with ``ctypes``. The build runs at first use, into ``build/torch_kernels/``
 beside the package (listed in ``.gitignore``); the library's file name
 carries a hash of its source, of every header under ``csrc/`` (the loss
-sources share ``sm90_tf32.cuh``, the search sources ``sm90_tma.cuh`` too)
+sources share ``sm90_tf32.cuh``; the search and attention sources
+``sm90_tma.cuh`` too)
 and of the flags, so an edited source or header is rebuilt and an
 unchanged one is reused; nvcc's report (``-Xptxas -v``: registers and
 spills a kernel) is kept beside it as ``.log``. Nothing here runs at import
 time: the CPU tests import every module on a machine with no ``nvcc``.
 
 The wrappers that launch the kernels (``ops/kernels.py``'s loss,
-``ops/prefilter.py``'s search) share the rest: ``on_cpu`` sends CPU tensors
+``ops/prefilter.py``'s search, ``ops/attention.py``'s sequence-tower
+attention) share the rest: ``on_cpu`` sends CPU tensors
 to the plain versions, ``raise_on`` turns a launch's error into an
 exception, and each wrapper marked ``counted`` counts its launches in
 ``<wrapper>.launches``: one set of counts, reset together by
@@ -44,7 +46,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("fused_loss.cu", "fused_loss_bwd.cu", "search_prefilter.cu",
-           "search_prefilter_f32.cu")
+           "search_prefilter_f32.cu", "stream_attention.cu")
 
 build_logs: dict[str, str] = {}  # source -> nvcc's output (-Xptxas -v: registers, spills)
 

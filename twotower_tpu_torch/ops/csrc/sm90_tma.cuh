@@ -1,9 +1,9 @@
-// Hopper (sm_90a) plumbing of the search prefilter's kernels, shared by
-// search_prefilter.cu (bfloat16) and search_prefilter_f32.cu (float32): the
-// Tensor Memory Accelerator's tiled copies and the mbarriers they complete
-// on, the shared-memory descriptor of a tile in the 128-byte swizzle, and on
-// the host the tensor maps those copies read, the SM count and the kernels'
-// shared-memory opt-in.
+// Hopper (sm_90a) plumbing of the kernels that load their tiles by TMA,
+// shared by search_prefilter.cu (bfloat16), search_prefilter_f32.cu
+// (float32) and stream_attention.cu: the Tensor Memory Accelerator's tiled
+// copies and the mbarriers they complete on, the shared-memory descriptor of
+// a tile in the 128-byte swizzle, and on the host the tensor maps those
+// copies read, the SM count and the kernels' shared-memory opt-in.
 //
 // A tile the TMA lands is rows of 128 bytes (64 bf16 or 32 float32), its
 // 16-byte chunks permuted by the row (the 128-byte swizzle), 8-row groups
@@ -30,6 +30,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// The same from a three-dimensional map, at element (x, y, z).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
 
@@ -133,6 +143,28 @@ static cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType dtype, int e
   const cuuint32_t steps[2] = {1, 1};
   const CUresult r = encode(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, steps,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of a bfloat16 [n, h, d] view whose rows lie h_stride
+// elements apart within a slot and n_stride apart between slots, read in
+// boxes of box_rows slots by box_depth deep at one h, swizzled by the box's
+// row of 2 box_depth bytes (128 or 32); past its edges, zeros.
+static cudaError_t tensor_map_3d(CUtensorMap* map, const void* ptr, int n, int h, int d,
+                                 long long h_stride, long long n_stride, int box_depth,
+                                 int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encoder(encode);
+  if (err != cudaSuccess) return err;
+  const CUtensorMapSwizzle swizzle =
+      box_depth == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)h_stride * 2, (cuuint64_t)n_stride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_depth, 1, (cuuint32_t)box_rows};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+                            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
